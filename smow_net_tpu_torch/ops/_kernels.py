@@ -1,0 +1,110 @@
+"""Build, load and count the hand-written CUDA kernels in `csrc/`.
+
+At first use every `csrc/*.cu` file is compiled by `nvcc` for Hopper
+(`sm_90a`) into ONE shared library with a plain C interface, cached under
+`smow_net_tpu_torch/_build/` by a hash of the sources, and loaded with
+ctypes. Nothing is built or loaded when a module is imported, so the CPU
+tests import every module without a CUDA toolkit.
+
+Each C entry point launches on the stream it is given and returns
+`cudaGetLastError()`; `call` raises on anything but 0. `launches` counts,
+per kernel, the launches made by the op wrappers (ops/warp.py,
+ops/xattn.py): a run can read it to show it went through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["launches", "library", "build", "call", "stream_handle"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+GENCODE = "arch=compute_90a,code=sm_90a"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points and their argument types: every pointer and the stream is a
+# c_void_p (a bare Python int would be passed as a 32-bit int), sizes are int
+_SIGNATURES = {
+    "token_scatter_fwd": [_P] * 5 + [_I] * 5 + [_P],
+    "xattn_layer_fwd": [_P] * 16 + [_I] * 7 + [ctypes.c_float, _P],
+}
+
+launches: collections.Counter = collections.Counter()
+build_report = ""        # nvcc/ptxas output of the build this process made
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: building the CUDA kernels needs the "
+                       "CUDA toolkit on PATH or under $CUDA_HOME")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into one .so (skipped when the hashed file exists)."""
+    global build_report
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    for p in sorted(CSRC.iterdir()):
+        digest.update(p.name.encode() + p.read_bytes())
+    out = BUILD_DIR / f"libsmow_kernels_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), "-gencode", GENCODE, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
+           "-o", tmp, *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_report = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_report}")
+    os.replace(tmp, out)    # atomic: concurrent builders never see half a file
+    return out
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.smow_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.smow_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def stream_handle(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def call(name: str, *args) -> None:
+    """Launch C entry `name`, raise on a CUDA error, count the launch."""
+    lib = library()
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        msg = lib.smow_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+    launches[name] += 1
