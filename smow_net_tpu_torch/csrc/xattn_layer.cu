@@ -29,59 +29,19 @@
 // as zeros and never stored. Weights arrive as fp32; only x and out take
 // the activation dtype (fp32 or bf16), and all arithmetic is fp32.
 
-#include "common.cuh"
+#include "xattn_layer.cuh"
 
 namespace {
 
-constexpr int kD = 128;       // model width
-constexpr int kHeads = 8;
-constexpr int kM = 8;         // memory tokens
-constexpr int kHidden = 256;
-constexpr int kTile = 64;     // pixel rows per block
-constexpr int kChunk = 64;    // hidden units staged per step
-constexpr int kThreads = 256;
-constexpr int kRow = kD + 4;        // padded smem row stride (bank spread)
+using namespace smow::xlayer;
+using smow::from_float;
+
 constexpr int kHRow = kChunk + 4;
 constexpr int kSmemFloats =
     2 * kTile * kRow + kD * kChunk + kChunk * kD + kTile * kHRow + kTile * kHeads;
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
 static_assert(kThreads == 256 && kTile == 64 && kD == 128 && kChunk == 64,
               "the register tiling below assumes these sizes");
-
-struct Params {
-  const int* perm;
-  const float *ln1_g, *ln1_b, *wq, *kexp, *vexp, *wo, *bo;
-  const float *ln2_g, *ln2_b, *w1, *b1, *w2, *b2;
-  int N;
-  float eps;
-};
-
-// LayerNorm of kTile rows of `src` into `dst` (both smem, stride kRow), one
-// warp per row, two-pass statistics.
-__device__ __forceinline__ void layer_norm_rows(const float* src, float* dst,
-                                                const float* __restrict__ g,
-                                                const float* __restrict__ b, float eps) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < kTile; r += kThreads / 32) {
-    float v[kD / 32];
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < kD / 32; ++j) {
-      v[j] = src[r * kRow + lane + 32 * j];
-      s += v[j];
-    }
-    const float mu = smow::warp_sum(s) * (1.f / kD);
-    float ss = 0.f;
-#pragma unroll
-    for (int j = 0; j < kD / 32; ++j) ss += (v[j] - mu) * (v[j] - mu);
-    const float rs = rsqrtf(smow::warp_sum(ss) * (1.f / kD) + eps);
-#pragma unroll
-    for (int j = 0; j < kD / 32; ++j) {
-      const int d = lane + 32 * j;
-      dst[r * kRow + d] = (v[j] - mu) * rs * __ldg(g + d) + __ldg(b + d);
-    }
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -102,12 +62,7 @@ xattn_layer_fwd_kernel(const T* __restrict__ x, T* __restrict__ out, Params p) {
   const T* xb = x + (size_t)b * N * kD;
 
   // 1. load the tile, applying the permutation as an index gather
-  for (int i = t; i < kTile * kD; i += kThreads) {
-    const int r = i / kD, d = i % kD, n = n0 + r;
-    float v = 0.f;
-    if (n < N) v = smow::to_float(xb[(size_t)n * kD + (p.perm ? __ldg(p.perm + d) : d)]);
-    xs[r * kRow + d] = v;
-  }
+  load_tile(xb, p.perm, n0, N, xs);
   __syncthreads();
 
   // 2. LN1
@@ -115,38 +70,11 @@ xattn_layer_fwd_kernel(const T* __restrict__ x, T* __restrict__ out, Params p) {
   __syncthreads();
 
   // 3. q and the per-(row, head) softmax over the M memory tokens
-  for (int i = t; i < kTile * kHeads; i += kThreads) {
-    const int r = i / kHeads, hh = i % kHeads;
-    float q = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < kD; ++d) q += ns[r * kRow + d] * __ldg(p.wq + d * kHeads + hh);
-    const float* kr = p.kexp + ((size_t)b * kHeads + hh) * kM;
-    const float* vr = p.vexp + ((size_t)b * kHeads + hh) * kM;
-    float dots[kM];
-#pragma unroll
-    for (int m = 0; m < kM; ++m) dots[m] = q * __ldg(kr + m);
-    float mx = dots[0];
-#pragma unroll
-    for (int m = 1; m < kM; ++m) mx = fmaxf(mx, dots[m]);
-    float den = 0.f, num = 0.f;
-#pragma unroll
-    for (int m = 0; m < kM; ++m) {
-      const float e = expf(dots[m] - mx);
-      den += e;
-      num += e * __ldg(vr + m);
-    }
-    os[r * kHeads + hh] = num / fmaxf(den, 1e-30f);
-  }
+  attention_rows(ns, p, b, os);
   __syncthreads();
 
   // 4. y1 = o wo + bo + xc, in place of the tile
-  for (int i = t; i < kTile * kD; i += kThreads) {
-    const int r = i / kD, d = i % kD;
-    float acc = __ldg(p.bo + d) + xs[r * kRow + d];
-#pragma unroll
-    for (int hh = 0; hh < kHeads; ++hh) acc += os[r * kHeads + hh] * __ldg(p.wo + hh * kD + d);
-    xs[r * kRow + d] = acc;
-  }
+  attention_out_rows(xs, os, p);
   __syncthreads();
 
   // 5. LN2
@@ -196,7 +124,7 @@ xattn_layer_fwd_kernel(const T* __restrict__ x, T* __restrict__ out, Params p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float hp = h[i][j] + __ldg(p.b1 + c0 + tx * 4 + j);
-        hs[(ty * 4 + i) * kHRow + tx * 4 + j] = 0.5f * hp * (1.f + erff(hp * 0.70710678118654752f));
+        hs[(ty * 4 + i) * kHRow + tx * 4 + j] = hp * gelu_cdf(hp);
       }
     __syncthreads();
 
@@ -229,7 +157,7 @@ xattn_layer_fwd_kernel(const T* __restrict__ x, T* __restrict__ out, Params p) {
     for (int j = 0; j < 8; ++j) {
       const int d = (j < 4) ? tx * 4 + j : kD / 2 + tx * 4 + (j - 4);
       ob[(size_t)n * kD + d] =
-          smow::from_float<T>(acc[i][j] + __ldg(p.b2 + d) + xs[r * kRow + d]);
+          from_float<T>(acc[i][j] + __ldg(p.b2 + d) + xs[r * kRow + d]);
     }
   }
 }

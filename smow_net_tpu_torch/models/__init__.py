@@ -22,12 +22,18 @@ def list_models():
     return ["smow_net"]
 
 
-def get_model(name: str) -> torch.nn.Module:
-    """Build a model by registry name (on the CPU; callers move it)."""
+def get_model(name: str, device="cuda") -> torch.nn.Module:
+    """Build a model by registry name on `device`: the CUDA card unless the
+    caller asks for the CPU (device="cpu"). Raises when CUDA is asked for
+    and absent."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"get_model({name!r}): no CUDA device; pass device='cpu' "
+                           "to build on the CPU")
     if name == "smow_net":
         from .smow_net import SMOWNet
 
-        return SMOWNet()
+        return SMOWNet().to(device)
     if name in _LATER:
         raise NotImplementedError(f"{name!r} is not ported yet: {_LATER[name]}")
     raise KeyError(f"unknown model {name!r}; available: {list_models()}")

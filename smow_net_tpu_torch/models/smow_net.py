@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import CrossTransformerLayer, TransformerLayer
+from ..nn.layers import BatchNorm3d, CrossTransformerLayer, TransformerLayer
 from ..nn.resnet3d import ResNet3D
 from ..ops import warp
 from ..ops.pixel_shuffle import smow_shuffle
@@ -37,7 +37,7 @@ class BasicConv3d(nn.Module):
         super().__init__()
         self.conv_bn = nn.Sequential(
             nn.Conv3d(in_ch, features, kernel_size, stride, padding),
-            nn.BatchNorm3d(features), nn.ReLU())
+            BatchNorm3d(features), nn.ReLU())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv_bn(x)
@@ -53,7 +53,7 @@ class OFW(nn.Module):
         layers = []
         for _ in range(3):
             layers += [nn.Conv3d(inplane, inplane, 3, (1, 2, 2), 1, groups=inplane),
-                       nn.BatchNorm3d(inplane), nn.ReLU()]
+                       BatchNorm3d(inplane), nn.ReLU()]
         self.down = nn.Sequential(*layers)
         self.flow_make = nn.Conv3d(2 * inplane, 2, 3, padding=1, bias=False)
 
@@ -113,7 +113,7 @@ def ofw_tokens_fused(ofw: OFW, tenc: TokenTransformerEncoder,
     ew = ew.reshape(B, 2, n, L)
     zaw = zaw.reshape(B, 2, L)
     a = a.reshape(B, 2, n, L)
-    ea = torch.exp(a - a.amax(dim=2, keepdim=True))
+    ea = torch.exp(a - a.amax(dim=2, keepdim=True).detach())     # shift: no gradient
     za = ea.sum(dim=2)
     f = xb.reshape(B, 2, C, n)
 
@@ -156,7 +156,7 @@ class ConvTransBlock3d(CyclicTemporalMix):
         k, p = spatial_kernel, spatial_padding
         self.conv3d_spatial = nn.ConvTranspose3d(in_ch, features, (1, k, k), (1, 2, 2),
                                                  (0, p, p), output_padding=(0, 1, 1))
-        self.batch = nn.BatchNorm3d(features)
+        self.batch = BatchNorm3d(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.leaky_relu(self.batch(super().forward(self.conv3d_spatial(x))), 0.2)
@@ -169,9 +169,9 @@ class ConvBlock23d(nn.Module):
     def __init__(self, in_ch: int, features: int):
         super().__init__()
         self.conv_block_2_3d = nn.Sequential(
-            nn.Conv3d(in_ch, features, 3, 1, 1), nn.BatchNorm3d(features),
+            nn.Conv3d(in_ch, features, 3, 1, 1), BatchNorm3d(features),
             nn.LeakyReLU(0.2), nn.Conv3d(features, features, 3, 1, 1),
-            nn.BatchNorm3d(features))
+            BatchNorm3d(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv_block_2_3d(x)

@@ -9,12 +9,40 @@ the MLP is `net.0` / `net.3`. LayerNorm eps 1e-5, exact (erf) GELU.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops import xattn
 
-__all__ = ["PreNorm", "Residual", "SelfAttentionBlock", "FeedForward",
+__all__ = ["BatchNorm3d", "PreNorm", "Residual", "SelfAttentionBlock", "FeedForward",
            "TransformerLayer", "CrossAttentionBlock", "CrossTransformerLayer"]
+
+
+class BatchNorm3d(nn.BatchNorm3d):
+    """BatchNorm over (B, T, H, W) with flax's train-mode semantics (the
+    JAX package's `batch_norm`, nn/layers.py:154; momentum 0.9 there is
+    torch's 0.1, eps 1e-5). In train mode it normalises with the biased
+    batch statistics and moves the running statistics toward the batch mean
+    and the BIASED batch variance E[x^2] - E[x]^2, both taken in fp32 (for
+    bf16 input too); torch's own BatchNorm moves running_var toward the
+    unbiased variance. Eval mode and the state_dict keys are torch's."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        dims = (0, 2, 3, 4)
+        stat = torch.promote_types(x.dtype, torch.float32)
+        with torch.no_grad():
+            mean = x.mean(dim=dims, dtype=stat)
+            sq = torch.linalg.vector_norm(x, dim=dims, dtype=stat).square()
+            var = (sq / (x.numel() // x.shape[1]) - mean.square()).clamp_min(0.0)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
 class PreNorm(nn.Module):

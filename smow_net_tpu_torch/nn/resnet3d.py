@@ -4,13 +4,16 @@ smow_net_tpu/nn/resnet3d.py, reference models/SMOW_Net.py:426-585).
 Every 2D conv of ResNet-18 becomes a spatial (1, k, k) Conv3d plus three
 1x1x1 temporal mixers over the T=2 frames, initialised so the block starts
 temporally identity (time_2 = eye, time_1 = time_3 = 0). Activations are
-NCDHW with D = T = 2; BatchNorm3d pools statistics over (B, T, H, W).
+NCDHW with D = T = 2; BatchNorm3d (flax train-mode statistics, nn/layers.py)
+pools statistics over (B, T, H, W).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from .layers import BatchNorm3d
 
 __all__ = ["DecomposedConv3d", "BasicBlock3d", "ResNet3D"]
 
@@ -48,14 +51,14 @@ class BasicBlock3d(nn.Module):
     def __init__(self, in_ch: int, features: int, stride: int = 1):
         super().__init__()
         self.conv1 = DecomposedConv3d(in_ch, features, 3, stride, 1)
-        self.bn1 = nn.BatchNorm3d(features)
+        self.bn1 = BatchNorm3d(features)
         self.conv2 = DecomposedConv3d(features, features, 3, 1, 1)
-        self.bn2 = nn.BatchNorm3d(features)
+        self.bn2 = BatchNorm3d(features)
         self.downsample = None
         if stride != 1 or in_ch != features:
             self.downsample = nn.Sequential(
                 nn.Conv3d(in_ch, features, 1, (1, stride, stride), bias=False),
-                nn.BatchNorm3d(features))
+                BatchNorm3d(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -73,7 +76,7 @@ class ResNet3D(nn.Module):
     def __init__(self, widths=(64, 128, 256, 512), blocks_per_stage: int = 2):
         super().__init__()
         self.conv1 = DecomposedConv3d(3, 64, 7, 2, 3)
-        self.bn1 = nn.BatchNorm3d(64)
+        self.bn1 = BatchNorm3d(64)
         in_ch = 64
         for i, w in enumerate(widths):
             blocks = []

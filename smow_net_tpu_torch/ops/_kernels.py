@@ -1,7 +1,8 @@
 """Build, load and count the hand-written CUDA kernels in `csrc/`.
 
 At first use every `csrc/*.cu` file is compiled by `nvcc` for Hopper
-(`sm_90a`) into ONE shared library with a plain C interface, cached under
+(`sm_90a`), one compiler process per file, all in parallel, and linked
+into ONE shared library with a plain C interface, cached under
 `smow_net_tpu_torch/_build/` by a hash of the sources, and loaded with
 ctypes. Nothing is built or loaded when a module is imported, so the CPU
 tests import every module without a CUDA toolkit.
@@ -36,7 +37,11 @@ _I = ctypes.c_int
 # c_void_p (a bare Python int would be passed as a 32-bit int), sizes are int
 _SIGNATURES = {
     "token_scatter_fwd": [_P] * 5 + [_I] * 5 + [_P],
+    "token_scatter_fwd_eaw": [_P] * 6 + [_I] * 5 + [_P],
+    "grid_sample_t_vjp": [_P] * 5 + [_I] * 7 + [_P],
+    "grid_sample_bwd": [_P] * 5 + [_I] * 7 + [_P],
     "xattn_layer_fwd": [_P] * 16 + [_I] * 7 + [ctypes.c_float, _P],
+    "xattn_layer_bwd": [_P] * 20 + [_I] * 9 + [ctypes.c_float, _P],
 }
 
 launches: collections.Counter = collections.Counter()
@@ -66,17 +71,27 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", GENCODE, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
-           "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_report = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_report}")
-    os.replace(tmp, out)    # atomic: concurrent builders never see half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        # one nvcc per source, all started together, then one link
+        objs = [Path(work) / (src.stem + ".o") for src in sources]
+        procs = [subprocess.Popen(
+            [nvcc, "-gencode", GENCODE, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-I", str(CSRC), "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)]
+        outputs = [p.communicate()[0] for p in procs]
+        build_report = "".join(outputs)
+        failed = [src.name for src, p in zip(sources, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_report}")
+        tmp = Path(work) / "lib.so"
+        proc = subprocess.run([nvcc, "-gencode", GENCODE, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        build_report += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{build_report}")
+        os.replace(tmp, out)    # atomic: a concurrent build never sees half a file
     return out
 
 

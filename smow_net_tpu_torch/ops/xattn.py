@@ -7,11 +7,15 @@ memory; w_out (h, D); w1 (D, hidden); w2 (hidden, D); an optional one-hot
 lane permutation `perm` (D, D) with x_c = x @ perm. The permutation is
 applied as an index gather, never as a matmul.
 
-`cross_layer_head1` is kernel F (csrc/xattn_layer.cu) on a CUDA tensor and
-`cross_layer_head1_plain` on a CPU tensor.
+`cross_layer_head1` is a torch.autograd.Function on a CUDA tensor, forward
+kernel F (csrc/xattn_layer.cu) and backward kernel F-bwd
+(csrc/xattn_layer_bwd.cu), and `cross_layer_head1_plain` under torch autograd
+on a CPU tensor.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -64,18 +68,24 @@ def cross_layer_head1_plain(x, ln1_scale, ln1_bias, wq, k, v, w_out, b_out,
     return h @ w2.to(dt) + b2.to(dt) + y1
 
 
-_LAYER_SHAPE = (128, 8, 8, 256)   # (D, heads, M, hidden) built into kernel F
+_LAYER_SHAPE = (128, 8, 8, 256)   # (D, heads, M, hidden) built into kernels F and F-bwd
+_ARG_NAMES = ("x", "ln1_scale", "ln1_bias", "wq", "k", "v", "w_out", "b_out",
+              "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
 
 
-def cross_layer_head1(x, ln1_scale, ln1_bias, wq, k, v, w_out, b_out,
-                      ln2_scale, ln2_bias, w1, b1, w2, b2, *,
-                      scale, perm=None, eps=1e-5):
-    """The whole layer: kernel F on a CUDA tensor, the plain version on a
-    CPU tensor."""
-    args = (x, ln1_scale, ln1_bias, wq, k, v, w_out, b_out,
-            ln2_scale, ln2_bias, w1, b1, w2, b2)
-    if x.device.type == "cpu":
-        return cross_layer_head1_plain(*args, scale=scale, perm=perm, eps=eps)
+def _slab_layout(D, h, hidden):
+    """Kernel F-bwd's per-block partial sums: (argument, shape) in the order
+    of the kOff* offsets in csrc/xattn_layer_bwd.cu."""
+    return (("w1", (D, hidden)), ("w2", (hidden, D)), ("wq", (D, h)), ("w_out", (h, D)),
+            ("ln1_scale", (D,)), ("ln1_bias", (D,)), ("ln2_scale", (D,)),
+            ("ln2_bias", (D,)), ("b_out", (D,)), ("b2", (D,)), ("b1", (hidden,)))
+
+
+def _kernel_args(args, scale, perm):
+    """Check the layer's CUDA arguments against what kernels F and F-bwd
+    take; returns the fp32 weights by name, kexp/vexp (B, h, M) with the
+    softmax scale folded into kexp, and the permutation as source lanes."""
+    x, k, v = args[0], args[4], args[5]
     if not x.is_cuda:
         raise ValueError(f"cross_layer_head1: unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -84,7 +94,7 @@ def cross_layer_head1(x, ln1_scale, ln1_bias, wq, k, v, w_out, b_out,
         raise ValueError("cross_layer_head1: x must be (B, N, D), k and v (B, M, h)")
     B, N, D = x.shape
     M, h = k.shape[1], k.shape[2]
-    hidden = w1.shape[1]
+    hidden = args[10].shape[1]
     if (D, h, M, hidden) != _LAYER_SHAPE or k.shape[0] != B:
         raise ValueError(f"cross_layer_head1: kernel F is built for (D, heads, M, hidden)"
                          f" = {_LAYER_SHAPE}, got {(D, h, M, hidden)}")
@@ -97,23 +107,93 @@ def cross_layer_head1(x, ln1_scale, ln1_bias, wq, k, v, w_out, b_out,
     for (name, shape), t in zip(expect.items(), args[1:4] + args[6:]):
         if tuple(t.shape) != shape or t.device != x.device:
             raise ValueError(f"cross_layer_head1: {name} must be {shape} on {x.device}")
-        w[name] = t.float().contiguous()
+        w[name] = t.detach().float().contiguous()
     if k.device != x.device or v.device != x.device:
         raise ValueError(f"cross_layer_head1: k and v must be on {x.device}")
-    kexp = (k.float() * scale).transpose(1, 2).contiguous()   # (B, h, M)
-    vexp = v.float().transpose(1, 2).contiguous()
+    kexp = (k.detach().float() * scale).transpose(1, 2).contiguous()   # (B, h, M)
+    vexp = v.detach().float().transpose(1, 2).contiguous()
     src = None
     if perm is not None:
         if tuple(perm.shape) != (D, D) or perm.device != x.device:
             raise ValueError(f"cross_layer_head1: perm must be ({D}, {D}) on {x.device}")
         src = _perm_index(perm).to(torch.int32).contiguous()
+    return w, kexp, vexp, src
+
+
+def _weight_ptrs(w, kexp, vexp):
+    return [w["ln1_scale"].data_ptr(), w["ln1_bias"].data_ptr(), w["wq"].data_ptr(),
+            kexp.data_ptr(), vexp.data_ptr(), w["w_out"].data_ptr(), w["b_out"].data_ptr(),
+            w["ln2_scale"].data_ptr(), w["ln2_bias"].data_ptr(), w["w1"].data_ptr(),
+            w["b1"].data_ptr(), w["w2"].data_ptr(), w["b2"].data_ptr()]
+
+
+def _layer_fwd(args, scale, perm, eps):
+    """Kernel F: the layer's output (B, N, D) in x.dtype."""
+    x = args[0]
+    w, kexp, vexp, src = _kernel_args(args, scale, perm)
+    B, N, D = x.shape
+    h, M, hidden = w["wq"].shape[1], kexp.shape[2], w["w1"].shape[1]
     out = torch.empty_like(x)
-    _kernels.call(
-        "xattn_layer_fwd", x.data_ptr(), None if src is None else src.data_ptr(),
-        w["ln1_scale"].data_ptr(), w["ln1_bias"].data_ptr(), w["wq"].data_ptr(),
-        kexp.data_ptr(), vexp.data_ptr(), w["w_out"].data_ptr(), w["b_out"].data_ptr(),
-        w["ln2_scale"].data_ptr(), w["ln2_bias"].data_ptr(), w["w1"].data_ptr(),
-        w["b1"].data_ptr(), w["w2"].data_ptr(), w["b2"].data_ptr(), out.data_ptr(),
-        B, N, D, h, M, hidden, int(x.dtype == torch.bfloat16), float(eps),
-        _kernels.stream_handle(x.device))
+    _kernels.call("xattn_layer_fwd", x.data_ptr(), None if src is None else src.data_ptr(),
+                  *_weight_ptrs(w, kexp, vexp), out.data_ptr(),
+                  B, N, D, h, M, hidden, int(x.dtype == torch.bfloat16), float(eps),
+                  _kernels.stream_handle(x.device))
     return out
+
+
+def _layer_bwd(args, gy, scale, perm, eps):
+    """Kernel F-bwd: the gradients of the layer's 14 inputs (`_ARG_NAMES`)
+    for the output cotangent gy, each in its input's dtype. The kernel
+    leaves one block's row sums per slab row; they are summed here."""
+    x = args[0]
+    w, kexp, vexp, src = _kernel_args(args, scale, perm)
+    gy = gy.to(x.dtype).contiguous()
+    B, N, D = x.shape
+    h, M, hidden = w["wq"].shape[1], kexp.shape[2], w["w1"].shape[1]
+    layout = _slab_layout(D, h, hidden)
+    sizes = [math.prod(shape) for _, shape in layout]
+    tiles = B * -(-N // 64)     # the kernel's 64-row tiles (kTile, csrc/xattn_layer.cuh)
+    blocks = min(tiles, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    slab = torch.zeros(blocks, sum(sizes), dtype=torch.float32, device=x.device)
+    dkexp = torch.zeros(B, h, M, dtype=torch.float32, device=x.device)
+    dvexp = torch.zeros_like(dkexp)
+    dx = torch.empty_like(x)
+    _kernels.call("xattn_layer_bwd", x.data_ptr(), gy.data_ptr(),
+                  None if src is None else src.data_ptr(), *_weight_ptrs(w, kexp, vexp),
+                  dx.data_ptr(), slab.data_ptr(), dkexp.data_ptr(), dvexp.data_ptr(),
+                  B, N, D, h, M, hidden, blocks, sum(sizes),
+                  int(x.dtype == torch.bfloat16), float(eps), _kernels.stream_handle(x.device))
+    grads = {name: part.reshape(shape) for (name, shape), part in
+             zip(layout, slab.sum(dim=0).split(sizes))}
+    grads["x"] = dx
+    grads["k"] = dkexp.transpose(1, 2) * scale
+    grads["v"] = dvexp.transpose(1, 2)
+    return tuple(grads[name].to(a.dtype) for name, a in zip(_ARG_NAMES, args))
+
+
+class _CrossLayerHead1(torch.autograd.Function):
+    """Kernel F forward, kernel F-bwd backward; only the inputs are saved.
+    perm gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, perm, scale, eps, *args):
+        ctx.scale, ctx.eps, ctx.perm = scale, eps, perm
+        ctx.save_for_backward(*args)
+        return _layer_fwd(args, scale, perm, eps)
+
+    @staticmethod
+    def backward(ctx, gy):
+        grads = _layer_bwd(ctx.saved_tensors, gy, ctx.scale, ctx.perm, ctx.eps)
+        return (None, None, None) + grads
+
+
+def cross_layer_head1(x, ln1_scale, ln1_bias, wq, k, v, w_out, b_out,
+                      ln2_scale, ln2_bias, w1, b1, w2, b2, *,
+                      scale, perm=None, eps=1e-5):
+    """The whole layer: kernel F (and F-bwd for its gradients) on a CUDA
+    tensor, the plain version under torch autograd on a CPU tensor."""
+    args = (x, ln1_scale, ln1_bias, wq, k, v, w_out, b_out,
+            ln2_scale, ln2_bias, w1, b1, w2, b2)
+    if x.device.type == "cpu":
+        return cross_layer_head1_plain(*args, scale=scale, perm=perm, eps=eps)
+    return _CrossLayerHead1.apply(perm, scale, eps, *args)

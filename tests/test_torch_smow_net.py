@@ -66,7 +66,7 @@ def runs():
     jax_out = [np.asarray(v) for v in jax_out]
 
     sd = state_dict_from_jax(variables)
-    port = get_model("smow_net")
+    port = get_model("smow_net", device="cpu")
     port.load_state_dict(sd, strict=True)
     port_out = [v.numpy() for v in make_eval_step(port)(batch)]
     return dict(variables=variables, sd=sd, port=port, jax=jax_out, torch=port_out)
@@ -104,11 +104,22 @@ def test_port_imports_no_jax():
     code = (
         "import sys, torch\n"
         "from smow_net_tpu_torch.models import get_model\n"
-        "m = get_model('smow_net').eval()\n"
+        "m = get_model('smow_net', device='cpu').eval()\n"
         "x = torch.randn(1, 3, 64, 64, generator=torch.Generator().manual_seed(0))\n"
         "with torch.inference_mode():\n"
         "    y = m(x, x.flip(-1))\n"
         "assert y.shape == (1, 1, 64, 64) and bool(torch.isfinite(y).all())\n"
+        "from smow_net_tpu_torch.train.schedule import get_schedule\n"
+        "from smow_net_tpu_torch.train.trainer import (create_train_state, make_optimizer,\n"
+        "                                              make_train_step)\n"
+        "opt = make_optimizer(get_schedule('cosine', 1e-4, 2, 1))(m.parameters())\n"
+        "state = create_train_state(m, opt)\n"
+        "g = torch.Generator().manual_seed(1)\n"
+        "batch = {'A': torch.randn(1, 64, 64, 3, generator=g),\n"
+        "         'B': torch.randn(1, 64, 64, 3, generator=g),\n"
+        "         'mask': (torch.rand(1, 64, 64, generator=g) > 0.8).float()}\n"
+        "loss = make_train_step(m, opt)(state, batch)\n"
+        "assert bool(torch.isfinite(loss)) and state.step == 1 and opt.count == 1\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'flax', 'smow_net_tpu')]\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
