@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Drive the PyTorch/CUDA port of SMOW_Net on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port of SMOW_Net and SMOW_Net_LW on one NVIDIA GPU
+and check it.
 
     python3 chip_smoke.py
 
@@ -12,11 +13,18 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      E (D plus the eaw residual), C (`grid_sample_t_vjp`), A-bwd
      (`grid_sample_bwd`); then the whole `token_softmax_scatter` VJP
      (da, dflow), kernel path vs plain path, in fp32
-  4. kernel F (decoder layer) vs its plain version: (16, 16384, 128),
-     h = 8, M = 8, hidden 256, with and without the lane permutation
+  3c. kernels A-fwd (`grid_sample`) and B (`grid_sample_transpose`) vs their
+     plain versions, fp32 and bf16, at (32, 128, 128, 8) (SMOW_Net_LW's
+     token chain), with border-clamped flows, and C = 16
+  3d. the unfused token chain's VJP (da, dflow), kernel path vs plain path,
+     fp32; then the hybrid and the unfused chain timed, forward plus
+     backward, bf16 at (32, 128, 128, 8)
+  4. kernel F (decoder layer) vs its plain version: (16, 16384, D), h = 8,
+     M = 8, hidden 2D, with and without the lane permutation, at D = 128
+     (SMOW_Net) and D = 64 (SMOW_Net_LW), and the ragged N = 1000
   4b. kernel F-bwd vs torch.autograd.grad of the plain layer: all 14 input
-     gradients at (16, 16384, 128) with and without the permutation, fp32
-     and bf16, and the ragged N = 1000
+     gradients at (16, 16384, D) with and without the permutation, fp32
+     and bf16, and the ragged N = 1000, at D = 128 and D = 64
   5. main path: get_model("smow_net") with numpy-seeded weights in bf16,
      make_eval_step over 3 batches of 16 x 256^2 pairs; each kernel's launch
      count must rise by exactly one per batch; then ms/batch (CUDA events)
@@ -35,15 +43,26 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      (its table beside phase 5's)
   8. whole-model fp32 train gradients (TF32 off), kernel path vs plain
      path, batch 2 at 256^2
-  9. the kernels' JSON line, then the result line as the last line
+  9-12. phases 5-8 for get_model("smow_net_lw"): the eval step (D and F at
+     D = 64 once per batch), the fp32 model, the train step (A-fwd, B, C,
+     A-bwd, F and F-bwd at D = 64 once per step, D and E never) and its
+     fp32 gradients
+  13. the kernels' JSON line, the card's line, then the result line last
 
 Bounds: fp32 kernels against fp32 plain versions differ only in summation
-order (atomics in D, E and A-bwd, a different reduction order in C, F and
-F-bwd): 1e-5 of the largest output, 1e-4 where a sum runs over many rows
-or the atomics contend (F-bwd's weight gradients, the token chain's whole
-VJP). bf16 kernels compute in fp32 and round once on output, so they are
-held against the plain version run in fp32 on the same bf16 inputs, to one
-bf16 rounding (2^-8 relative) of the largest output.
+order (atomics in D, E, A-bwd and B, a different reduction order in A-fwd,
+C, F and F-bwd): 1e-5 of the largest output, 1e-4 where a sum runs over
+many rows or the atomics contend (F-bwd's weight gradients, the token
+chain's whole VJP). bf16 kernels compute in fp32 and round once on output,
+so they are held against the plain version run in fp32 on the same bf16
+inputs, to one bf16 rounding (2^-8 relative) of the largest output.
+
+Times: a warp kernel's device time (D, E, C, A-bwd, A-fwd, B, each 0.02-0.3
+ms) is taken from a CUDA graph of 20 calls of its wrapper, replayed and
+timed with CUDA events, so the host's Python and ctypes overhead is out of
+the reading (as are their plain versions and the library calls); the
+profiler's time of the kernel alone is logged beside it. The decoder
+layer's kernels (0.5-7 ms) are timed with CUDA events over 20 calls.
 
 Each kernel's `bound_ms` is the least time the card could take for its
 work at the timed shape (bf16): the larger of its bytes (each input read
@@ -92,6 +111,48 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of one call of `fn`: a CUDA graph of `iters` calls
+    (captured after warm-up on a side stream), replayed `replays` times
+    between CUDA events. The host's per-call overhead is out of the reading;
+    launch gaps inside the graph stay in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def kernel_only_ms(fn, kernel: str, iters: int = 20) -> float:
+    """The profiler's device time per call of the CUDA kernels whose name
+    contains `kernel` (the kernel alone, without its wrapper's memset and
+    cast), over `iters` calls of `fn`."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in device_events(prof.key_averages()) if kernel in e.key]
+    require(events, f"the profiler saw no kernel named like {kernel}")
+    return sum(e.self_device_time_total for e in events) / 1e3 / iters
+
+
 def check(label: str, got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float) -> float:
     """max |got - want| against atol + rtol * max |want|; raises if above."""
     got, want = got.float(), want.float()
@@ -131,11 +192,12 @@ def device_events(averages):
 def plain_ops():
     """Route the model's kernel ops through their plain versions (for timing
     and the fp32 comparisons only; the model never does this): the token
-    chain's three ops and the decoder layer, whose plain version then runs
+    chains' five ops and the decoder layer, whose plain version then runs
     under torch autograd."""
     from smow_net_tpu_torch.ops import warp, xattn
 
-    names = ("token_scatter", "grid_sample_t_vjp", "grid_sample_bwd")
+    names = ("token_scatter", "grid_sample_t_vjp", "grid_sample_bwd", "grid_sample",
+             "grid_sample_transpose")
     saved = [getattr(warp, n) for n in names], xattn.cross_layer_head1
     for n in names:
         setattr(warp, n, getattr(warp, n + "_plain"))
@@ -146,6 +208,14 @@ def plain_ops():
         for n, f in zip(names, saved[0]):
             setattr(warp, n, f)
         xattn.cross_layer_head1 = saved[1]
+
+
+def log_times(results: dict, label: str) -> None:
+    for k, v in results.items():
+        log(f"  {label} bf16 time {k}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
+            f"bound {v['bound_ms']:.4f} ms"
+            + ("" if v["library_ms"] is None else f", library {v['library_ms']:.4f} ms (NCHW)")
+            + " (CUDA graph)")
 
 
 def phase_kernel_d(dev) -> dict:
@@ -179,12 +249,16 @@ def phase_kernel_d(dev) -> dict:
                         "large-spread case: ew / max(zaw, 1e-30) must be finite")
             if label == "slice" and dt == torch.bfloat16:
                 result["max_abs_err"] = err
-                result["ms"] = cuda_ms(lambda: warp.token_scatter(x, grid, m))
-                result["plain_ms"] = cuda_ms(lambda: warp.token_scatter_plain(x, grid, m))
+                call = lambda: warp.token_scatter(x, grid, m)
+                result["ms"] = graph_ms(call)
+                result["plain_ms"] = graph_ms(lambda: warp.token_scatter_plain(x, grid, m))
                 result.update(bound(nbytes(x, grid, m, ew, zaw), 18 * x.numel()),
                               library_ms=None)
                 log(f"  slice bf16 time: kernel {result['ms']:.4f} ms, "
-                    f"plain {result['plain_ms']:.4f} ms, bound {result['bound_ms']:.4f} ms")
+                    f"plain {result['plain_ms']:.4f} ms, bound {result['bound_ms']:.4f} ms "
+                    f"(CUDA graph); kernel alone {kernel_only_ms(call, 'token_scatter'):.4f} "
+                    f"ms (profiler); 20 calls between events {cuda_ms(call):.4f} ms (host-bound "
+                    "where the host is slower than the card)")
 
     case("slice", (32, 128, 128, 8))
     case("spread>87", (32, 128, 128, 8), spike=True)
@@ -248,15 +322,18 @@ def phase_token_backward(dev) -> dict:
             if label == "slice" and dt == torch.bfloat16:
                 e, c, ab = (results[k] for k in results)
                 e.update(max_abs_err=err_e, library_ms=None,
-                         ms=cuda_ms(lambda: warp.token_scatter(x, grid, m, residual=True)),
-                         plain_ms=cuda_ms(lambda: warp.token_scatter_plain(
+                         ms=graph_ms(lambda: warp.token_scatter(x, grid, m, residual=True)),
+                         plain_ms=graph_ms(lambda: warp.token_scatter_plain(
                              x, grid, m, residual=True)),
                          **bound(nbytes(x, grid, m, *got), 18 * x.numel()))
-                c.update(max_abs_err=err_c, library_ms=None,
-                         ms=cuda_ms(lambda: warp.grid_sample_t_vjp(xbar, eaw, grid)),
-                         plain_ms=cuda_ms(lambda: warp.grid_sample_t_vjp_plain(
+                c_call = lambda: warp.grid_sample_t_vjp(xbar, eaw, grid)
+                c.update(max_abs_err=err_c, library_ms=None, ms=graph_ms(c_call),
+                         plain_ms=graph_ms(lambda: warp.grid_sample_t_vjp_plain(
                              xbar, eaw, grid)),
                          **bound(nbytes(xbar, eaw, grid, dg, dw_c), 26 * x.numel()))
+                log(f"  C alone {kernel_only_ms(c_call, 'grid_sample_t_vjp'):.4f} ms "
+                    f"(profiler); 20 calls between events {cuda_ms(c_call):.4f} ms "
+                    "(the host's call rate, not the kernel)")
                 # the one PyTorch call for A-bwd's function: the backward of
                 # F.grid_sample (bilinear, border, align_corners) in NCHW,
                 # which returns dgrid where A-bwd returns the weight rows
@@ -264,16 +341,12 @@ def phase_token_backward(dev) -> dict:
                 g_nchw = daw.permute(0, 3, 1, 2).contiguous()
                 grid_dt = grid.to(dt)
                 ab.update(max_abs_err=err_a,
-                          ms=cuda_ms(lambda: warp.grid_sample_bwd(x, daw, grid)),
-                          plain_ms=cuda_ms(lambda: warp.grid_sample_bwd_plain(x, daw, grid)),
-                          library_ms=cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+                          ms=graph_ms(lambda: warp.grid_sample_bwd(x, daw, grid)),
+                          plain_ms=graph_ms(lambda: warp.grid_sample_bwd_plain(x, daw, grid)),
+                          library_ms=graph_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
                               g_nchw, x_nchw, grid_dt, 0, 1, True, [True, True])),
                           **bound(nbytes(x, daw, grid, da, dw_a), 26 * x.numel()))
-                for k, v in results.items():
-                    log(f"  slice bf16 time {k}: kernel {v['ms']:.4f} ms, plain "
-                        f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms"
-                        + ("" if v["library_ms"] is None
-                           else f", library {v['library_ms']:.4f} ms (NCHW)"))
+                log_times(results, label)
 
     case("slice", (32, 128, 128, 8))
     case("spread>87", (32, 128, 128, 8), spike=True)
@@ -295,6 +368,101 @@ def phase_token_backward(dev) -> dict:
         for part, g, w in zip(("da", "dflow"), got, want):
             check(f"{label} {part}", g, w, 1e-6, 1e-4)
     return results
+
+
+def phase_warps(dev) -> dict:
+    """Kernels A-fwd and B against their plain versions, fp32 and bf16, on
+    free and border-clamped flows; then their times at SMOW_Net_LW's token
+    chain shape beside the library calls."""
+    from smow_net_tpu_torch.ops import warp
+
+    log("phase 3c: kernels A-fwd grid_sample_fwd and B grid_sample_transpose vs their "
+        "plain versions")
+    results = {"grid_sample_fwd": {}, "grid_sample_transpose": {}}
+
+    def case(label, shape, spike=False):
+        a, _, grid, r, _ = _token_inputs(dev, shape, 32, spike)
+        F_, H, W, C = shape
+        for dt in (torch.float32, torch.bfloat16):
+            x, g = a.to(dt), r.to(dt)
+            rtol = 1e-5 if dt == torch.float32 else BF16_REL
+            name = f"{label} {str(dt)[6:]}"
+            out = warp.grid_sample(x, grid)
+            err_a = check(f"A-fwd {name}", out, warp.grid_sample_plain(x.float(), grid),
+                          1e-5, rtol)
+            out_t = warp.grid_sample_transpose(g, grid, (H, W))
+            err_b = check(f"B {name}", out_t,
+                          warp.grid_sample_transpose_plain(g.float(), grid, (H, W)), 1e-5, rtol)
+            require(out.dtype == out_t.dtype == dt, "A-fwd and B return the input dtype")
+            if label == "LW chain" and dt == torch.bfloat16:
+                fwd, tr = results["grid_sample_fwd"], results["grid_sample_transpose"]
+                # the one PyTorch call for each: F.grid_sample (bilinear, border,
+                # align_corners) in NCHW, and its input gradient S^T g
+                x_nchw = x.permute(0, 3, 1, 2).contiguous()
+                g_nchw = g.permute(0, 3, 1, 2).contiguous()
+                grid_dt = grid.to(dt)
+                a_call = lambda: warp.grid_sample(x, grid)
+                b_call = lambda: warp.grid_sample_transpose(g, grid, (H, W))
+                fwd.update(max_abs_err=err_a, ms=graph_ms(a_call),
+                           plain_ms=graph_ms(lambda: warp.grid_sample_plain(x, grid)),
+                           library_ms=graph_ms(lambda: torch.nn.functional.grid_sample(
+                               x_nchw, grid_dt, "bilinear", "border", True)),
+                           **bound(nbytes(x, grid, out), 8 * x.numel()))
+                tr.update(max_abs_err=err_b, ms=graph_ms(b_call),
+                          plain_ms=graph_ms(lambda: warp.grid_sample_transpose_plain(
+                              g, grid, (H, W))),
+                          library_ms=graph_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+                              g_nchw, x_nchw, grid_dt, 0, 1, True, [True, False])),
+                          **bound(nbytes(g, grid, out_t), 8 * g.numel()))
+                log_times(results, label)
+                log(f"  kernels alone (profiler): A-fwd "
+                    f"{kernel_only_ms(a_call, 'grid_sample_fwd'):.4f} ms, B "
+                    f"{kernel_only_ms(b_call, 'grid_sample_transpose'):.4f} ms")
+
+    case("LW chain", (32, 128, 128, 8))
+    case("border-clamped", (32, 128, 128, 8), spike=True)
+    case("C=16", (32, 128, 128, 16))
+    return results
+
+
+def phase_unfused_chain(dev) -> None:
+    """The unfused token chain's VJP on the kernel path against the plain
+    path; then the two train chains timed at SMOW_Net_LW's shape."""
+    from smow_net_tpu_torch.ops import _kernels, warp
+
+    log("phase 3d: unfused token chain VJP, fp32: kernel path (A-fwd, B, C, A-bwd) vs "
+        "plain path (bound 1e-4 of the largest element, as phase 3b)")
+    names = ("grid_sample_fwd", "grid_sample_transpose", "grid_sample_t_vjp", "grid_sample_bwd")
+    for label, spike in (("LW chain", False), ("spread>87", True)):
+        a, flow, _, r, s = _token_inputs(dev, (32, 128, 128, 8), 33, spike)
+
+        def grads():
+            at, ft = a.clone().requires_grad_(), flow.clone().requires_grad_()
+            ew, zaw = warp.token_softmax_scatter(at, ft, train_chain="unfused")
+            return torch.autograd.grad((ew * r).sum() + (zaw * s).sum(), (at, ft))
+
+        before = {n: _kernels.launches[n] for n in names}
+        got = grads()
+        require(all(_kernels.launches[n] == before[n] + 1 for n in names),
+                "the unfused chain must run each of A-fwd, B, C, A-bwd once")
+        with plain_ops():
+            want = grads()
+        for part, g, w in zip(("da", "dflow"), got, want):
+            check(f"{label} {part}", g, w, 1e-6, 1e-4)
+
+    a, flow, _, r, s = _token_inputs(dev, (32, 128, 128, 8), 34)
+    a, r, s = a.to(torch.bfloat16), r.to(torch.bfloat16), s.to(torch.bfloat16)
+    times = {}
+    for chain in ("hybrid", "unfused", "hybrid", "unfused"):
+        def fwd_bwd():
+            at, ft = a.clone().requires_grad_(), flow.clone().requires_grad_()
+            ew, zaw = warp.token_softmax_scatter(at, ft, train_chain=chain)
+            torch.autograd.grad((ew * r).sum() + (zaw * s).sum(), (at, ft))
+
+        times.setdefault(chain, []).append(cuda_ms(fwd_bwd))
+    log("  (finding) train chain forward + backward, bf16 (32, 128, 128, 8), CUDA events "
+        "over 20 calls, in turns: "
+        + ", ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms" for k, v in times.items()))
 
 
 def _layer_args(dev, B, N, D=128, h=8, M=8, hid=256, seed=4):
@@ -323,22 +491,22 @@ def _decoder_perm(dev, D=128, T=4):
     return torch.from_numpy(p).to(dev)
 
 
-def phase_kernel_f(dev) -> dict:
+def phase_kernel_f(dev, D: int) -> dict:
     from smow_net_tpu_torch.ops import xattn
 
-    log("phase 4: kernel F xattn_layer_fwd vs cross_layer_head1_plain")
+    log(f"phase 4: kernel F xattn_layer_fwd vs cross_layer_head1_plain at D = {D}")
     result = {}
-    scale = 128 ** -0.5
-    args32 = _layer_args(dev, 16, 16384)
+    scale = D ** -0.5
+    args32 = _layer_args(dev, 16, 16384, D=D, hid=2 * D)
     for use_perm in (False, True):
-        perm = _decoder_perm(dev) if use_perm else None
+        perm = _decoder_perm(dev, D) if use_perm else None
         for dt in (torch.float32, torch.bfloat16):
             # weights too at bf16 values, so the fp32 plain run sees the same numbers
             args = [a.to(dt) for a in args32]
             out = xattn.cross_layer_head1(*args, scale=scale, perm=perm)
             want = xattn.cross_layer_head1_plain(*[a.float() for a in args], scale=scale,
                                                  perm=perm)
-            name = f"(16,16384,128) perm={use_perm} {str(dt)[6:]}"
+            name = f"(16,16384,{D}) perm={use_perm} {str(dt)[6:]}"
             if dt == torch.float32:
                 err = check(name, out, want, 1e-4, 1e-5)
             else:
@@ -354,29 +522,31 @@ def phase_kernel_f(dev) -> dict:
                         *args, scale=scale))
                     weights = [a.float() for a in args[1:]]
                     result.update(bound(nbytes(args[0], out, *weights),
-                                        _layer_flops(*args[0].shape)), library_ms=None)
+                                        _layer_flops(*args[0].shape, hid=2 * D)),
+                                  library_ms=None)
                     log(f"  bf16 time: kernel {result['ms']:.4f} ms, "
                         f"plain {result['plain_ms']:.4f} ms, bound {result['bound_ms']:.4f} ms")
     # ragged tail: N not a multiple of the kernel's 64-row tile
-    args = _layer_args(dev, 2, 1000, seed=5)
-    check("ragged (2,1000,128) fp32", xattn.cross_layer_head1(*args, scale=scale),
+    args = _layer_args(dev, 2, 1000, D=D, hid=2 * D, seed=5)
+    check(f"ragged (2,1000,{D}) fp32", xattn.cross_layer_head1(*args, scale=scale),
           xattn.cross_layer_head1_plain(*args, scale=scale), 1e-4, 1e-5)
     # what the decoder pays to reach (B, N, D) rows from NCDHW before kernel F
-    y = torch.randn(16, 32, 4, 128, 128, device=dev, dtype=torch.bfloat16)
-    t_ms = cuda_ms(lambda: y.reshape(16, 128, 16384).transpose(1, 2).contiguous())
+    y = torch.randn(16, D // 4, 4, 128, 128, device=dev, dtype=torch.bfloat16)
+    t_ms = cuda_ms(lambda: y.reshape(16, D, 16384).transpose(1, 2).contiguous())
     log(f"  (info) NCDHW -> (B, N, D) transpose before kernel F, bf16 bs16: {t_ms:.4f} ms")
     return result
 
 
-def phase_kernel_f_bwd(dev) -> dict:
+def phase_kernel_f_bwd(dev, D: int) -> dict:
     """Kernel F-bwd: the 14 input gradients against torch.autograd.grad of
     the plain layer in fp32 on the same inputs."""
     from smow_net_tpu_torch.ops import xattn
 
-    log("phase 4b: kernel F-bwd xattn_layer_bwd vs autograd of cross_layer_head1_plain")
+    log(f"phase 4b: kernel F-bwd xattn_layer_bwd vs autograd of cross_layer_head1_plain "
+        f"at D = {D}")
     names = ("x", "ln1_scale", "ln1_bias", "wq", "k", "v", "w_out", "b_out",
              "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
-    scale = 128 ** -0.5
+    scale = D ** -0.5
     result = {}
 
     def compare(label, args32, gy32, perm, dt):
@@ -391,13 +561,13 @@ def phase_kernel_f_bwd(dev) -> dict:
         return max(check(f"{label} {str(dt)[6:]} d{n}", g, w, 1e-5, rtol)
                    for n, g, w in zip(names, got, want)), args, gy
 
-    args32 = _layer_args(dev, 16, 16384)
+    args32 = _layer_args(dev, 16, 16384, D=D, hid=2 * D)
     gy32 = torch.from_numpy(np.random.default_rng(6).normal(
-        size=(16, 16384, 128)).astype(np.float32)).to(dev)
+        size=(16, 16384, D)).astype(np.float32)).to(dev)
     for use_perm in (False, True):
-        perm = _decoder_perm(dev) if use_perm else None
+        perm = _decoder_perm(dev, D) if use_perm else None
         for dt in (torch.float32, torch.bfloat16):
-            err, args, gy = compare(f"(16,16384,128) perm={use_perm}", args32, gy32, perm, dt)
+            err, args, gy = compare(f"(16,16384,{D}) perm={use_perm}", args32, gy32, perm, dt)
             if dt == torch.bfloat16 and not use_perm:
                 result["max_abs_err"] = err
                 result["ms"] = cuda_ms(lambda: xattn._layer_bwd(args, gy, scale, None, 1e-5))
@@ -406,13 +576,13 @@ def phase_kernel_f_bwd(dev) -> dict:
                     out, args, gy, retain_graph=True))
                 weights = [a.detach().float() for a in args[1:]]
                 result.update(bound(nbytes(args[0], gy, args[0], *weights, *weights),
-                                    _layer_flops(16, 16384, 128, mlp_products=5)),
+                                    _layer_flops(16, 16384, D, hid=2 * D, mlp_products=5)),
                               library_ms=None)
                 log(f"  bf16 time: kernel {result['ms']:.4f} ms, plain backward "
                     f"{result['plain_ms']:.4f} ms, bound {result['bound_ms']:.4f} ms")
-    compare("ragged (2,1000,128)", _layer_args(dev, 2, 1000, seed=5),
+    compare(f"ragged (2,1000,{D})", _layer_args(dev, 2, 1000, D=D, hid=2 * D, seed=5),
             torch.from_numpy(np.random.default_rng(7).normal(
-                size=(2, 1000, 128)).astype(np.float32)).to(dev), None, torch.float32)
+                size=(2, 1000, D)).astype(np.float32)).to(dev), None, torch.float32)
     return result
 
 
@@ -454,14 +624,28 @@ def make_batches(dev, count, batch, size, seed):
     return out
 
 
-def phase_main_path(dev) -> dict:
+EVAL_KERNELS = ("token_scatter_fwd", "xattn_layer_fwd")
+# the train step's kernels per model, and the kernels it must not launch
+TRAIN_KERNELS = {
+    "smow_net": ("token_scatter_fwd_eaw", "grid_sample_t_vjp", "grid_sample_bwd",
+                 "xattn_layer_fwd", "xattn_layer_bwd"),
+    "smow_net_lw": ("grid_sample_fwd", "grid_sample_transpose", "grid_sample_t_vjp",
+                    "grid_sample_bwd", "xattn_layer_fwd", "xattn_layer_bwd"),
+}
+TRAIN_ABSENT = {
+    "smow_net": ("token_scatter_fwd", "grid_sample_fwd", "grid_sample_transpose"),
+    "smow_net_lw": ("token_scatter_fwd", "token_scatter_fwd_eaw"),
+}
+
+
+def phase_main_path(dev, name: str, phase: int, rounds: int) -> dict:
     from smow_net_tpu_torch.models import get_model
     from smow_net_tpu_torch.ops import _kernels
     from smow_net_tpu_torch.train.metrics import cm2score
     from smow_net_tpu_torch.train.trainer import make_eval_step
 
-    log("phase 5: main path, SMOW_Net eval step, bf16, 3 batches of 16 x 256^2")
-    model = get_model("smow_net")
+    log(f"phase {phase}: main path, {name} eval step, bf16, 3 batches of 16 x 256^2")
+    model = get_model(name)
     model.load_state_dict(seeded_state_dict(model, 0))
     model = model.to(torch.bfloat16)
     step = make_eval_step(model)
@@ -469,13 +653,12 @@ def phase_main_path(dev) -> dict:
     step(batches[0])                                     # warm-up (cuDNN plans)
     torch.cuda.synchronize()
 
-    names = ("token_scatter_fwd", "xattn_layer_fwd")
     _kernels.launches.clear()
     cm_total = torch.zeros(2, 2, device=dev)
     for i, batch in enumerate(batches):
         cm, loss, pred = step(batch)
-        counts = {n: _kernels.launches[n] for n in names}
-        require(all(c == i + 1 for c in counts.values()),
+        counts = dict(_kernels.launches)
+        require(counts == {n: i + 1 for n in EVAL_KERNELS},
                 f"launch counts {counts} after batch {i + 1}")
         require(pred.shape == (16, 256, 256) and bool(torch.isfinite(pred).all()),
                 "predictions must be finite, (16, 256, 256)")
@@ -486,7 +669,7 @@ def phase_main_path(dev) -> dict:
         cm_total += cm
         log(f"  batch {i}: loss {float(loss):.6f} cm {cm.tolist()} "
             f"pred mean {float(pred.mean()):.4f} std {float(pred.std()):.4f}")
-    launches = {n: _kernels.launches[n] for n in names}
+    launches = {n: _kernels.launches[n] for n in EVAL_KERNELS}
     log(f"  launches {launches}; cm2score {json.dumps(cm2score(cm_total))}")
 
     # timing: rounds of 5 batches (one untimed batch first), alternating the
@@ -504,23 +687,7 @@ def phase_main_path(dev) -> dict:
             out.append(start.elapsed_time(end))
         return out
 
-    timing, wins = {"kernel": [], "plain": []}, 0
-    for r in range(6):
-        for path in (("kernel", "plain") if r % 2 == 0 else ("plain", "kernel")):
-            if path == "plain":
-                before = dict(_kernels.launches)
-                with plain_ops():
-                    timing[path].append(round_ms())
-                require(dict(_kernels.launches) == before, "plain path launched a kernel")
-            else:
-                timing[path].append(round_ms())
-        wins += int(np.median(timing["kernel"][-1]) < np.median(timing["plain"][-1]))
-    medians = {}
-    for path, rounds in timing.items():
-        q1, medians[path], q3 = np.percentile(np.concatenate(rounds), [25, 50, 75])
-        log(f"  {path} path ms/batch: median {medians[path]:.3f} (q1 {q1:.3f}, q3 {q3:.3f}, "
-            f"{len(rounds)} rounds x 5)")
-    log(f"  kernel path faster in {wins} of {len(timing['kernel'])} rounds")
+    medians = alternate_rounds(round_ms, rounds, "batch")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for batch in batches:
@@ -532,18 +699,48 @@ def phase_main_path(dev) -> dict:
     per_batch = sum(e.count for e in on_device) / len(batches)
     log(f"  profile: device busy {busy:.3f} ms/batch in {per_batch:.0f} kernels/batch, "
         f"{busy / medians['kernel']:.3f} of the unprofiled kernel-path median")
+    for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    {e.self_device_time_total / 1e3 / len(batches):8.3f} ms/batch  "
+            f"{e.count // len(batches):4d}x  {e.key[:90]}")
     os.makedirs(PROFILE_DIR, exist_ok=True)
-    with open(os.path.join(PROFILE_DIR, "eval_bf16_bs16_profile.txt"), "w") as fh:
+    with open(os.path.join(PROFILE_DIR, f"{name}_eval_bf16_bs16_profile.txt"), "w") as fh:
         fh.write(averages.table(sort_by="cuda_time_total", row_limit=40))
     log(f"  profile table written to {PROFILE_DIR}")
     return launches
 
 
-def phase_fp32_model(dev) -> None:
+def alternate_rounds(round_ms, rounds: int, unit: str) -> dict:
+    """Rounds of `round_ms()` alternating the kernel path and the plain path
+    (their order flipped every round; the plain path must launch no
+    kernel); logs and returns each path's median."""
+    from smow_net_tpu_torch.ops import _kernels
+
+    timing, wins = {"kernel": [], "plain": []}, 0
+    for r in range(rounds):
+        for path in (("kernel", "plain") if r % 2 == 0 else ("plain", "kernel")):
+            if path == "plain":
+                before = dict(_kernels.launches)
+                with plain_ops():
+                    timing[path].append(round_ms())
+                require(dict(_kernels.launches) == before, "plain path launched a kernel")
+            else:
+                timing[path].append(round_ms())
+        wins += int(np.median(timing["kernel"][-1]) < np.median(timing["plain"][-1]))
+    medians = {}
+    for path, rows in timing.items():
+        q1, medians[path], q3 = np.percentile(np.concatenate(rows), [25, 50, 75])
+        log(f"  {path} path ms/{unit}: median {medians[path]:.3f} (q1 {q1:.3f}, q3 {q3:.3f}, "
+            f"{len(rows)} rounds x 5)")
+    log(f"  kernel path faster in {wins} of {rounds} rounds")
+    return medians
+
+
+def phase_fp32_model(dev, name: str, phase: int) -> None:
     from smow_net_tpu_torch.models import get_model
 
-    log("phase 6: whole model fp32 (TF32 off), kernel path vs plain path, batch 2, 256^2")
-    model = get_model("smow_net")
+    log(f"phase {phase}: whole {name} fp32 (TF32 off), kernel path vs plain path, batch 2, "
+        "256^2")
+    model = get_model(name)
     model.load_state_dict(seeded_state_dict(model, 0))
     model = model.eval()
     rng = np.random.default_rng(11)
@@ -556,33 +753,29 @@ def phase_fp32_model(dev) -> None:
     require(got.shape == (2, 1, 256, 256), f"output shape {tuple(got.shape)}")
     log(f"  probabilities mean {float(want.mean()):.4f} std {float(want.std()):.4f}")
     # fp32 everywhere; the two paths differ only in the kernels' summation order
-    check("SMOWNet fp32 probabilities", got, want, 1e-4, 0.0)
+    check(f"{name} fp32 probabilities", got, want, 1e-4, 0.0)
 
 
-TRAIN_KERNELS = ("token_scatter_fwd_eaw", "grid_sample_t_vjp", "grid_sample_bwd",
-                 "xattn_layer_fwd", "xattn_layer_bwd")
-
-
-def _train_setup(compute_dtype, steps):
+def _train_setup(name, compute_dtype, steps):
     from smow_net_tpu_torch.models import get_model
     from smow_net_tpu_torch.train.schedule import get_schedule
     from smow_net_tpu_torch.train.trainer import (create_train_state, make_optimizer,
                                                   make_train_step)
 
-    model = get_model("smow_net")
+    model = get_model(name)
     model.load_state_dict(seeded_state_dict(model, 0))
     opt = make_optimizer(get_schedule("cosine", 1e-4, epochs=1, iters_per_epoch=steps))(
         model.parameters())
     return model, create_train_state(model, opt), make_train_step(model, opt, compute_dtype)
 
 
-def phase_train(dev) -> dict:
+def phase_train(dev, name: str, phase: int, rounds: int) -> dict:
     from smow_net_tpu_torch.ops import _kernels
 
-    log("phase 7: main path, SMOW_Net train step, bf16 compute over fp32 masters, "
+    log(f"phase {phase}: main path, {name} train step, bf16 compute over fp32 masters, "
         "6 steps on one repeated batch of 16 x 256^2")
     steps = 6
-    model, state, step = _train_setup(torch.bfloat16, steps)
+    model, state, step = _train_setup(name, torch.bfloat16, steps)
     batch = make_batches(dev, 1, 16, 256, seed=8)[0]
     params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
     stats0 = {n: b.detach().clone() for n, b in model.named_buffers() if "running" in n}
@@ -592,13 +785,12 @@ def phase_train(dev) -> dict:
     losses = []
     for i in range(steps):
         losses.append(float(step(state, batch)))
-        counts = {n: _kernels.launches[n] for n in TRAIN_KERNELS}
-        require(all(c == i + 1 for c in counts.values()),
-                 f"launch counts {counts} after train step {i + 1}")
-        require(_kernels.launches["token_scatter_fwd"] == 0,
-                "the train step must take kernel E, not the inference kernel D")
+        counts = dict(_kernels.launches)
+        require(counts == {n: i + 1 for n in TRAIN_KERNELS[name]},
+                f"launch counts {counts} after train step {i + 1}: each of "
+                f"{TRAIN_KERNELS[name]} once per step, and never {TRAIN_ABSENT[name]}")
         log(f"  step {i}: loss {losses[-1]:.6f}")
-    launches = {n: _kernels.launches[n] for n in TRAIN_KERNELS}
+    launches = {n: _kernels.launches[n] for n in TRAIN_KERNELS[name] + TRAIN_ABSENT[name]}
     log(f"  launches {launches}; cm {state.cm.tolist()}")
     require(all(np.isfinite(losses)) and losses[-1] < losses[0],
             f"the loss must be finite and fall on a repeated batch: {losses}")
@@ -611,8 +803,12 @@ def phase_train(dev) -> dict:
     log(f"  {len(params0) - len(still)} of {len(params0)} parameter tensors changed; "
         f"unchanged: {still}")
     # a conv bias right before a train-mode BatchNorm has a zero gradient in
-    # exact arithmetic, so it may not move; every other tensor must
+    # exact arithmetic, so it may not move, nor may SMOW_Net_LW's
+    # backbone.features.18 (it feeds no tap: zero gradient, and a weight decay
+    # of lr * wd = 1e-8 that fp32 rounds away); every other tensor must
     require(len(still) <= 0.1 * len(params0), "the parameters did not change")
+    require(all(n.startswith("backbone.features.18.") or n.endswith("bias") for n in still),
+            f"weights that did not move: {still}")
     require(all(b.dtype == torch.float32 and not torch.equal(b, stats0[n])
                 for n, b in model.named_buffers() if n in stats0),
             "every BN running statistic must stay fp32 and move")
@@ -633,24 +829,8 @@ def phase_train(dev) -> dict:
         return out
 
     torch.cuda.reset_peak_memory_stats()
-    timing, wins = {"kernel": [], "plain": []}, 0
-    for r in range(4):
-        for path in (("kernel", "plain") if r % 2 == 0 else ("plain", "kernel")):
-            if path == "plain":
-                before = dict(_kernels.launches)
-                with plain_ops():
-                    timing[path].append(round_ms())
-                require(dict(_kernels.launches) == before, "plain path launched a kernel")
-            else:
-                timing[path].append(round_ms())
-        wins += int(np.median(timing["kernel"][-1]) < np.median(timing["plain"][-1]))
-    medians = {}
-    for path, rounds in timing.items():
-        q1, medians[path], q3 = np.percentile(np.concatenate(rounds), [25, 50, 75])
-        log(f"  {path} path ms/step: median {medians[path]:.3f} (q1 {q1:.3f}, q3 {q3:.3f}, "
-            f"{len(rounds)} rounds x 5)")
-    log(f"  kernel path faster in {wins} of {len(timing['kernel'])} rounds; peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    medians = alternate_rounds(round_ms, rounds, "step")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
@@ -666,19 +846,19 @@ def phase_train(dev) -> dict:
         log(f"    {e.self_device_time_total / 1e3 / 3:8.3f} ms/step  {e.count // 3:4d}x  "
             f"{e.key[:90]}")
     os.makedirs(PROFILE_DIR, exist_ok=True)
-    with open(os.path.join(PROFILE_DIR, "train_bf16_bs16_profile.txt"), "w") as fh:
+    with open(os.path.join(PROFILE_DIR, f"{name}_train_bf16_bs16_profile.txt"), "w") as fh:
         fh.write(averages.table(sort_by="cuda_time_total", row_limit=60))
     return launches
 
 
-def phase_fp32_train_grads(dev) -> None:
+def phase_fp32_train_grads(dev, name: str, phase: int) -> None:
     from smow_net_tpu_torch.models import get_model
     from smow_net_tpu_torch.train.loss import bce_dice_loss
     from smow_net_tpu_torch.train.trainer import select_pred
 
-    log("phase 8: whole-model fp32 train gradients (TF32 off, deterministic cuDNN), "
-        "kernel path vs plain path, batch 2, 256^2")
-    model = get_model("smow_net")
+    log(f"phase {phase}: whole-model {name} fp32 train gradients (TF32 off, deterministic "
+        "cuDNN), kernel path vs plain path, batch 2, 256^2")
+    model = get_model(name)
     model.load_state_dict(seeded_state_dict(model, 0))
     model.train()
     batch = make_batches(dev, 1, 2, 256, seed=12)[0]
@@ -688,7 +868,10 @@ def phase_fp32_train_grads(dev) -> None:
         model.zero_grad(set_to_none=True)
         loss = bce_dice_loss(select_pred(model(x1, x2)).float(), batch["mask"])
         loss.backward()
-        return float(loss.detach()), {n: p.grad.clone() for n, p in model.named_parameters()}
+        # a parameter that feeds no output (SMOW_Net_LW's backbone.features.18)
+        # gets no gradient on either path
+        return float(loss.detach()), {n: p.grad.clone() for n, p in model.named_parameters()
+                                      if p.grad is not None}
 
     # ConvTranspose3d's forward is cuDNN's backward-data, whose default
     # algorithms add with atomics: run to run, an activation next to a
@@ -703,6 +886,8 @@ def phase_fp32_train_grads(dev) -> None:
     finally:
         torch.backends.cudnn.deterministic = False
     log(f"  loss kernel path {loss_k:.7f}, plain path {loss_p:.7f}")
+    require(got.keys() == want.keys() and len(want) >= len(list(model.parameters())) - 3,
+            "the two paths must give gradients to the same parameters")
     require(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), "the two paths' losses differ")
     largest = max(float(w.abs().max()) for w in want.values())
     rows = []
@@ -748,35 +933,56 @@ def main() -> None:
 
     d = phase_kernel_d(dev)
     tok = phase_token_backward(dev)
-    f = phase_kernel_f(dev)
-    fb = phase_kernel_f_bwd(dev)
-    launches = phase_main_path(dev)
-    phase_fp32_model(dev)
-    train_launches = phase_train(dev)
-    phase_fp32_train_grads(dev)
+    warps = phase_warps(dev)
+    phase_unfused_chain(dev)
+    f = {D: phase_kernel_f(dev, D) for D in (128, 64)}
+    fb = {D: phase_kernel_f_bwd(dev, D) for D in (128, 64)}
+    launches = phase_main_path(dev, "smow_net", 5, rounds=6)
+    phase_fp32_model(dev, "smow_net", 6)
+    train_launches = phase_train(dev, "smow_net", 7, rounds=4)
+    phase_fp32_train_grads(dev, "smow_net", 8)
+    lw_launches = phase_main_path(dev, "smow_net_lw", 9, rounds=6)
+    phase_fp32_model(dev, "smow_net_lw", 10)
+    lw_train_launches = phase_train(dev, "smow_net_lw", 11, rounds=4)
+    phase_fp32_train_grads(dev, "smow_net_lw", 12)
 
-    log("phase 9: results (launches: D and F from the eval path of phase 5, the train "
-        f"kernels from phase 7; F in phase 7: {train_launches['xattn_layer_fwd']})")
+    log("phase 13: results (launches: D and F at D = 128 from SMOW_Net's eval path (phase "
+        "5), E, C, A-bwd and F-bwd at D = 128 from its train step (phase 7), A-fwd and B "
+        "from SMOW_Net_LW's train step (phase 11), F and F-bwd at D = 64 from SMOW_Net_LW's "
+        "eval path (phase 9) and train step (phase 11); SMOW_Net's train step ran F "
+        f"{train_launches['xattn_layer_fwd']} times, SMOW_Net_LW's ran C "
+        f"{lw_train_launches['grid_sample_t_vjp']} and A-bwd "
+        f"{lw_train_launches['grid_sample_bwd']} times)")
     csrc, pallas = "smow_net_tpu_torch/csrc/", "smow_net_tpu/ops/pallas/"
+
+    def row(name, source, replaces, launch_count, numbers, **extra):
+        return dict(name=name, route="cuda", source=csrc + source, replaces=pallas + replaces,
+                    launches=launch_count, **numbers, **extra)
+
     kernels = [
-        dict(name="token_scatter_fwd", route="cuda", source=csrc + "token_scatter.cu",
-             replaces=pallas + "warp.py:781", launches=launches["token_scatter_fwd"], **d),
-        dict(name="xattn_layer_fwd", route="cuda", source=csrc + "xattn_layer.cu",
-             replaces=pallas + "xattn.py:609", launches=launches["xattn_layer_fwd"], **f),
-        dict(name="token_scatter_fwd_eaw", route="cuda", source=csrc + "token_scatter.cu",
-             replaces=pallas + "warp.py:928",
-             launches=train_launches["token_scatter_fwd_eaw"], **tok["token_scatter_fwd_eaw"]),
-        dict(name="grid_sample_t_vjp", route="cuda", source=csrc + "grid_sample_t_vjp.cu",
-             replaces=pallas + "warp.py:954",
-             launches=train_launches["grid_sample_t_vjp"], **tok["grid_sample_t_vjp"]),
-        dict(name="grid_sample_bwd", route="cuda", source=csrc + "grid_sample_bwd.cu",
-             replaces=pallas + "warp.py:989",
-             launches=train_launches["grid_sample_bwd"], **tok["grid_sample_bwd"]),
-        dict(name="xattn_layer_bwd", route="cuda", source=csrc + "xattn_layer_bwd.cu",
-             replaces=pallas + "xattn.py:633",
-             launches=train_launches["xattn_layer_bwd"], **fb),
+        row("token_scatter_fwd", "token_scatter.cu", "warp.py:781",
+            launches["token_scatter_fwd"], d),
+        row("xattn_layer_fwd", "xattn_layer.cu", "xattn.py:609", launches["xattn_layer_fwd"],
+            f[128]),
+        row("token_scatter_fwd_eaw", "token_scatter.cu", "warp.py:928",
+            train_launches["token_scatter_fwd_eaw"], tok["token_scatter_fwd_eaw"]),
+        row("grid_sample_t_vjp", "grid_sample_t_vjp.cu", "warp.py:300",
+            train_launches["grid_sample_t_vjp"], tok["grid_sample_t_vjp"]),
+        row("grid_sample_bwd", "grid_sample_bwd.cu", "warp.py:519",
+            train_launches["grid_sample_bwd"], tok["grid_sample_bwd"]),
+        row("xattn_layer_bwd", "xattn_layer_bwd.cu", "xattn.py:633",
+            train_launches["xattn_layer_bwd"], fb[128]),
+        row("grid_sample_fwd", "grid_sample_fwd.cu", "warp.py:508",
+            lw_train_launches["grid_sample_fwd"], warps["grid_sample_fwd"]),
+        row("grid_sample_transpose", "grid_sample_transpose.cu", "warp.py:385",
+            lw_train_launches["grid_sample_transpose"], warps["grid_sample_transpose"]),
+        row("xattn_layer_fwd_d64", "xattn_layer.cu", "xattn.py:609",
+            lw_launches["xattn_layer_fwd"], f[64]),
+        row("xattn_layer_bwd_d64", "xattn_layer_bwd.cu", "xattn.py:633",
+            lw_train_launches["xattn_layer_bwd"], fb[64]),
     ]
     print(json.dumps({"kernels": kernels}))
+    print(smi.stdout.strip())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

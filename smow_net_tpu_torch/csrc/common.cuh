@@ -83,4 +83,34 @@ __device__ __forceinline__ Corners bilinear_corners(float2 g, int H, int W) {
   return c;
 }
 
+// The bilinear sample of the C-channel image `img` at the corners `cr`:
+// out[c] = sum_k w_k img[idx_k, c] in fp32, corners in the order of `idx`.
+template <typename T, int C>
+__device__ __forceinline__ void gather_lerp(const T* __restrict__ img, const Corners& cr,
+                                            float (&out)[C]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) out[c] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float v[C];
+    load_f32<T, C>(img + (size_t)cr.idx[k] * C, v);
+    const float w = cr.wy[k / 2] * cr.wx[k % 2];
+#pragma unroll
+    for (int c = 0; c < C; ++c) out[c] += w * v[c];
+  }
+}
+
+// The adjoint of gather_lerp: acc[idx_k, c] += w_k v[c] with fp32 atomics
+// into the C-channel image accumulator `acc`.
+template <int C>
+__device__ __forceinline__ void scatter_lerp(float* __restrict__ acc, const Corners& cr,
+                                             const float (&v)[C]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float w = cr.wy[k / 2] * cr.wx[k % 2];
+#pragma unroll
+    for (int c = 0; c < C; ++c) atomicAdd(acc + (size_t)cr.idx[k] * C + c, w * v[c]);
+  }
+}
+
 }  // namespace smow

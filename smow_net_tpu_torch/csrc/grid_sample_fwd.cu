@@ -1,0 +1,67 @@
+// Kernel A-fwd: bilinear sampling (the warp op), forward.
+//
+// Replaces `grid_sample_pallas` / `_kernel` in smow_net_tpu/ops/pallas/warp.py,
+// which SMOW_Net_LW's train-time token chain runs first (`flow_warp` of the
+// attention logits). For every grid pixel p with corners (y_k, x_j) and
+// separable weights (wy_k, wx_j) (border padding, align_corners=True):
+//   out[p, c] = sum_{k,j} wy_k wx_j x[y_k, x_j, c]
+// in fp32, rounded once to x's dtype.
+//
+// What bounds it on the card: memory. Per pixel it reads the grid point and
+// four C-channel image rows (gathers that mostly hit L2: neighbouring pixels
+// share corners) and writes one row; the arithmetic is 4C FMAs per pixel.
+//
+// Design: the TPU kernel folded the vertical lerp into a one-hot MXU matmul
+// and the horizontal one into a masked lane reduction, because the TPU has
+// no fast gather. Here one thread owns one grid pixel: it computes its
+// corners exactly as the other warp kernels do (common.cuh), gathers the
+// four corner rows with 16-byte loads, lerps in fp32 and stores its row. No
+// atomics, so the result is the same on every run.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads)
+grid_sample_fwd_kernel(const T* __restrict__ x, const float* __restrict__ grid,
+                       T* __restrict__ out, int H, int W, int P) {
+  const int b = blockIdx.y;
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= P) return;
+  const float2 gp = __ldg(reinterpret_cast<const float2*>(grid) + (size_t)b * P + p);
+  const smow::Corners cr = smow::bilinear_corners(gp, H, W);
+  float v[C];
+  smow::gather_lerp<T, C>(x + (size_t)b * H * W * C, cr, v);
+  smow::store_from_f32<T, C>(out + ((size_t)b * P + p) * C, v);
+}
+
+template <typename T, int C>
+cudaError_t launch(const void* x, const void* grid, void* out, int B, int H, int W, int P,
+                   cudaStream_t stream) {
+  const dim3 blocks((P + kThreads - 1) / kThreads, B);
+  grid_sample_fwd_kernel<T, C><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(grid), static_cast<T*>(out), H, W, P);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x: (B, H, W, C) fp32 or bf16 image; grid: (B, Hg, Wg, 2) fp32. Writes
+// out: (B, Hg, Wg, C) in x's dtype. C is 8 or 16.
+extern "C" int grid_sample_fwd(const void* x, const void* grid, void* out, int B, int H, int W,
+                               int Hg, int Wg, int C, int is_bf16, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || Hg <= 0 || Wg <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int P = Hg * Wg;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (C == 8)
+    err = is_bf16 ? launch<__nv_bfloat16, 8>(x, grid, out, B, H, W, P, s)
+                  : launch<float, 8>(x, grid, out, B, H, W, P, s);
+  else if (C == 16)
+    err = is_bf16 ? launch<__nv_bfloat16, 16>(x, grid, out, B, H, W, P, s)
+                  : launch<float, 16>(x, grid, out, B, H, W, P, s);
+  return static_cast<int>(err);
+}

@@ -51,29 +51,12 @@ token_scatter_fwd_kernel(const T* __restrict__ a, const float* __restrict__ grid
   if (p < P) {
     const float2 g = __ldg(reinterpret_cast<const float2*>(grid) + (size_t)f * P + p);
     const smow::Corners cr = smow::bilinear_corners(g, H, W);
-    const T* af = a + (size_t)f * P * C;
     float aw[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) aw[c] = 0.f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float v[C];
-      smow::load_f32<T, C>(af + (size_t)cr.idx[k] * C, v);
-      const float w = cr.wy[k / 2] * cr.wx[k % 2];
-#pragma unroll
-      for (int c = 0; c < C; ++c) aw[c] += w * v[c];
-    }
+    smow::gather_lerp<T, C>(a + (size_t)f * P * C, cr, aw);
 #pragma unroll
     for (int c = 0; c < C; ++c) e[c] = expf(aw[c] - __ldg(m + f * C + c));
     if (kResidual) smow::store_from_f32<T, C>(eaw + ((size_t)f * P + p) * C, e);
-
-    float* ef = ew + (size_t)f * P * C;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float w = cr.wy[k / 2] * cr.wx[k % 2];
-#pragma unroll
-      for (int c = 0; c < C; ++c) atomicAdd(ef + (size_t)cr.idx[k] * C + c, w * e[c]);
-    }
+    smow::scatter_lerp<C>(ew + (size_t)f * P * C, cr, e);
   }
 
   __shared__ float part[kThreads / 32][C];

@@ -9,14 +9,16 @@
 namespace smow {
 namespace xlayer {
 
-constexpr int kD = 128;       // model width
+// Widths built into both kernels: kD in {64, 128} (SMOW_Net_LW's and
+// SMOW_Net's decoders), hidden = 2 kD; every function below takes kD as a
+// template argument.
 constexpr int kHeads = 8;
 constexpr int kM = 8;         // memory tokens
-constexpr int kHidden = 256;
 constexpr int kTile = 64;     // pixel rows per block
 constexpr int kChunk = 64;    // hidden units staged per step
 constexpr int kThreads = 256;
-constexpr int kRow = kD + 4;  // padded smem row stride (bank spread)
+template <int kD> constexpr int kHidden = 2 * kD;
+template <int kD> constexpr int kRow = kD + 4;  // padded smem row stride (bank spread)
 
 struct Params {
   const int* perm;
@@ -27,22 +29,23 @@ struct Params {
 };
 
 // Rows n0 .. n0 + kTile of one batch's (N, kD) matrix into smem (stride
-// kRow) as fp32, with the lane permutation as an index gather (dst[d] =
+// kRow<kD>) as fp32, with the lane permutation as an index gather (dst[d] =
 // src[perm[d]]); rows past N are zeros.
-template <typename T>
+template <int kD, typename T>
 __device__ __forceinline__ void load_tile(const T* __restrict__ src, const int* __restrict__ perm,
                                           int n0, int N, float* dst) {
   for (int i = threadIdx.x; i < kTile * kD; i += kThreads) {
     const int r = i / kD, d = i % kD, n = n0 + r;
     float v = 0.f;
     if (n < N) v = to_float(src[(size_t)n * kD + (perm ? __ldg(perm + d) : d)]);
-    dst[r * kRow + d] = v;
+    dst[r * kRow<kD> + d] = v;
   }
 }
 
-// LayerNorm of kTile rows of `src` into `dst` (both smem, stride kRow), one
+// LayerNorm of kTile rows of `src` into `dst` (both smem, stride kRow<kD>), one
 // warp per row, statistics E[x^2] - mu^2 as in the JAX package. Each row's
 // mean and 1/sqrt(var + eps) go to mu[r], rs[r] when those are given.
+template <int kD>
 __device__ __forceinline__ void layer_norm_rows(const float* src, float* dst,
                                                 const float* __restrict__ g,
                                                 const float* __restrict__ b, float eps,
@@ -54,7 +57,7 @@ __device__ __forceinline__ void layer_norm_rows(const float* src, float* dst,
     float s = 0.f, ss = 0.f;
 #pragma unroll
     for (int j = 0; j < kD / 32; ++j) {
-      v[j] = src[r * kRow + lane + 32 * j];
+      v[j] = src[r * kRow<kD> + lane + 32 * j];
       s += v[j];
       ss += v[j] * v[j];
     }
@@ -63,7 +66,7 @@ __device__ __forceinline__ void layer_norm_rows(const float* src, float* dst,
 #pragma unroll
     for (int j = 0; j < kD / 32; ++j) {
       const int d = lane + 32 * j;
-      dst[r * kRow + d] = (v[j] - mu) * rs * __ldg(g + d) + __ldg(b + d);
+      dst[r * kRow<kD> + d] = (v[j] - mu) * rs * __ldg(g + d) + __ldg(b + d);
     }
     if (mu_out != nullptr && lane == 0) {
       mu_out[r] = mu;
@@ -91,13 +94,14 @@ __device__ __forceinline__ float softmax_tokens(float q, const float* __restrict
 // q = LN1(x) wq for each (row, head) of the tile (ns: LN1 output), the
 // attention output o = softmax . v into os (kTile, kHeads), q into qs when
 // given.
+template <int kD>
 __device__ __forceinline__ void attention_rows(const float* ns, const Params& p, int b,
                                                float* os, float* qs = nullptr) {
   for (int i = threadIdx.x; i < kTile * kHeads; i += kThreads) {
     const int r = i / kHeads, hh = i % kHeads;
     float q = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < kD; ++d) q += ns[r * kRow + d] * __ldg(p.wq + d * kHeads + hh);
+    for (int d = 0; d < kD; ++d) q += ns[r * kRow<kD> + d] * __ldg(p.wq + d * kHeads + hh);
     const float* vr = p.vexp + ((size_t)b * kHeads + hh) * kM;
     float e[kM];
     const float den = softmax_tokens(q, p.kexp + ((size_t)b * kHeads + hh) * kM, e);
@@ -110,13 +114,14 @@ __device__ __forceinline__ void attention_rows(const float* ns, const Params& p,
 }
 
 // y1 = o wo + bo + xc, in place of the tile xs.
+template <int kD>
 __device__ __forceinline__ void attention_out_rows(float* xs, const float* os, const Params& p) {
   for (int i = threadIdx.x; i < kTile * kD; i += kThreads) {
     const int r = i / kD, d = i % kD;
-    float acc = __ldg(p.bo + d) + xs[r * kRow + d];
+    float acc = __ldg(p.bo + d) + xs[r * kRow<kD> + d];
 #pragma unroll
     for (int hh = 0; hh < kHeads; ++hh) acc += os[r * kHeads + hh] * __ldg(p.wo + hh * kD + d);
-    xs[r * kRow + d] = acc;
+    xs[r * kRow<kD> + d] = acc;
   }
 }
 

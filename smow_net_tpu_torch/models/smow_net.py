@@ -91,7 +91,7 @@ class TokenTransformerEncoder(nn.Module):
 
 
 def ofw_tokens_fused(ofw: OFW, tenc: TokenTransformerEncoder,
-                     x: torch.Tensor) -> torch.Tensor:
+                     x: torch.Tensor, train_chain=None) -> torch.Tensor:
     """OFW + token pooling with the warps on the cheap side (see
     smow_net_tpu/models/smow_net.py:249-325): the token encoder's use of a
     warped frame W(F) only needs W(conv_a(F)) and the adjoint W^T of the
@@ -101,7 +101,8 @@ def ofw_tokens_fused(ofw: OFW, tenc: TokenTransformerEncoder,
     are pooled, and the pooled tokens are divided by max(z, 1e-30).
 
     x (B, C, 2, H, W) -> tokens (B, token_len, 4*C) for the frames
-    [F0, warp(F0), warp(F1), F1]."""
+    [F0, warp(F0), warp(F1), F1]. `train_chain` picks the differentiable
+    chain's lowering (warp.token_softmax_scatter)."""
     B, C, T, H, W = x.shape
     L = tenc.token_len
     n = H * W
@@ -109,7 +110,7 @@ def ofw_tokens_fused(ofw: OFW, tenc: TokenTransformerEncoder,
     fb = flow.permute(0, 2, 3, 4, 1).reshape(B * 2, H, W, 2)
     xb = x.transpose(1, 2).reshape(B * 2, C, H, W)
     a = tenc.attention_logits(xb).permute(0, 2, 3, 1).contiguous()   # (2B, H, W, L)
-    ew, zaw = warp.token_softmax_scatter(a, fb)
+    ew, zaw = warp.token_softmax_scatter(a, fb, train_chain)
     ew = ew.reshape(B, 2, n, L)
     zaw = zaw.reshape(B, 2, L)
     a = a.reshape(B, 2, n, L)

@@ -14,18 +14,19 @@ from torch import nn
 
 from ..ops import xattn
 
-__all__ = ["BatchNorm3d", "PreNorm", "Residual", "SelfAttentionBlock", "FeedForward",
-           "TransformerLayer", "CrossAttentionBlock", "CrossTransformerLayer"]
+__all__ = ["BatchNorm2d", "BatchNorm3d", "PreNorm", "Residual", "SelfAttentionBlock",
+           "FeedForward", "TransformerLayer", "CrossAttentionBlock", "CrossTransformerLayer"]
 
 
-class BatchNorm3d(nn.BatchNorm3d):
-    """BatchNorm over (B, T, H, W) with flax's train-mode semantics (the
-    JAX package's `batch_norm`, nn/layers.py:154; momentum 0.9 there is
-    torch's 0.1, eps 1e-5). In train mode it normalises with the biased
-    batch statistics and moves the running statistics toward the batch mean
-    and the BIASED batch variance E[x^2] - E[x]^2, both taken in fp32 (for
-    bf16 input too); torch's own BatchNorm moves running_var toward the
-    unbiased variance. Eval mode and the state_dict keys are torch's."""
+class _FlaxBatchNorm:
+    """BatchNorm with flax's train-mode semantics (the JAX package's
+    `batch_norm`, nn/layers.py:154; momentum 0.9 there is torch's 0.1, eps
+    1e-5), over every axis but the channels. In train mode it normalises
+    with the biased batch statistics and moves the running statistics toward
+    the batch mean and the BIASED batch variance E[x^2] - E[x]^2, both taken
+    in fp32 (for bf16 input too); torch's own BatchNorm moves running_var
+    toward the unbiased variance. Eval mode and the state_dict keys are
+    torch's. Mixed into torch's BatchNorm2d and BatchNorm3d below."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -33,7 +34,7 @@ class BatchNorm3d(nn.BatchNorm3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        dims = (0, 2, 3, 4)
+        dims = (0,) + tuple(range(2, x.dim()))
         stat = torch.promote_types(x.dtype, torch.float32)
         with torch.no_grad():
             mean = x.mean(dim=dims, dtype=stat)
@@ -43,6 +44,14 @@ class BatchNorm3d(nn.BatchNorm3d):
             self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
             self.num_batches_tracked += 1
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    """Flax-semantics BatchNorm over (B, H, W) (MobileNetV2's)."""
+
+
+class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
+    """Flax-semantics BatchNorm over (B, T, H, W)."""
 
 
 class PreNorm(nn.Module):

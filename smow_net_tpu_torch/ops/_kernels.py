@@ -38,6 +38,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "token_scatter_fwd": [_P] * 5 + [_I] * 5 + [_P],
     "token_scatter_fwd_eaw": [_P] * 6 + [_I] * 5 + [_P],
+    "grid_sample_fwd": [_P] * 3 + [_I] * 7 + [_P],
+    "grid_sample_transpose": [_P] * 3 + [_I] * 7 + [_P],
     "grid_sample_t_vjp": [_P] * 5 + [_I] * 7 + [_P],
     "grid_sample_bwd": [_P] * 5 + [_I] * 7 + [_P],
     "xattn_layer_fwd": [_P] * 16 + [_I] * 7 + [ctypes.c_float, _P],

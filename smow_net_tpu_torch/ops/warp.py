@@ -10,14 +10,19 @@ grid[..., 1] the y (height) coordinate, both in [-1, 1].
 Kernels (csrc/), each with its plain version beside it; a wrapper takes the
 plain version only for a CPU tensor and launches its kernel on a CUDA one:
 
-  token_scatter        kernels D (csrc/token_scatter.cu, `token_scatter_fwd`)
-                       and, with `residual=True`, E (`token_scatter_fwd_eaw`)
-  grid_sample_t_vjp    kernel C (csrc/grid_sample_t_vjp.cu)
-  grid_sample_bwd      kernel A's backward (csrc/grid_sample_bwd.cu)
+  grid_sample            kernel A's forward (csrc/grid_sample_fwd.cu)
+  grid_sample_transpose  kernel B (csrc/grid_sample_transpose.cu)
+  token_scatter          kernels D (csrc/token_scatter.cu, `token_scatter_fwd`)
+                         and, with `residual=True`, E (`token_scatter_fwd_eaw`)
+  grid_sample_t_vjp      kernel C (csrc/grid_sample_t_vjp.cu)
+  grid_sample_bwd        kernel A's backward (csrc/grid_sample_bwd.cu)
 
-`token_softmax_scatter` differentiates the token chain with a
-torch.autograd.Function whose forward is E and whose backward is C, an
-elementwise pass and A-bwd (the JAX hybrid lowering's VJP).
+`flow_warp` (forward A, backward A-bwd) and `flow_warp_transpose` (forward
+B, backward C) are torch.autograd.Functions over a flow field.
+`token_softmax_scatter` differentiates the token chain in one of the two
+JAX train lowerings: the hybrid, an autograd Function whose forward is E and
+whose backward is C, an elementwise pass and A-bwd; or the unfused
+composition of the two flow warps around an exp.
 
 The weight-gradient rows the C and A-bwd kernels return are `dw`
 (B, 4, Hg, Wg) fp32 in the order (dwy0, dwy1, dwx0, dwx1): the gradients
@@ -31,10 +36,12 @@ import torch
 
 from . import _kernels
 
-__all__ = ["grid_sample", "grid_sample_transpose", "flow_grid", "corner_rows",
+__all__ = ["grid_sample", "grid_sample_plain", "grid_sample_transpose",
+           "grid_sample_transpose_plain", "flow_grid", "corner_rows",
            "corner_weights_vjp", "token_scatter", "token_scatter_plain",
            "grid_sample_t_vjp", "grid_sample_t_vjp_plain", "grid_sample_bwd",
-           "grid_sample_bwd_plain", "token_softmax_scatter"]
+           "grid_sample_bwd_plain", "flow_warp", "flow_warp_transpose",
+           "token_softmax_scatter"]
 
 
 def corner_rows(grid: torch.Tensor, H: int, W: int):
@@ -98,9 +105,10 @@ def _scatter_corners(gf: torch.Tensor, idx: torch.Tensor, w, shape) -> torch.Ten
     return out.reshape(shape)
 
 
-def grid_sample(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample `x` at `grid` (border, align_corners=True). Returns
-    (B, Hg, Wg, C) in x.dtype."""
+def grid_sample_plain(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel A's forward: bilinear sample `x` at `grid`
+    (border, align_corners=True), lerped in fp32. Returns (B, Hg, Wg, C) in
+    x.dtype."""
     B, H, W, C = x.shape
     _, Hg, Wg, _ = grid.shape
     idx, sep = _corners(grid, H, W)
@@ -108,9 +116,10 @@ def grid_sample(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, Hg, Wg, C).to(x.dtype)
 
 
-def grid_sample_transpose(g: torch.Tensor, grid: torch.Tensor, out_hw) -> torch.Tensor:
-    """Adjoint of `grid_sample` as a primal op: out[m] = sum_n S[n, m] g[n]
-    into an (H, W) = out_hw image, accumulated in fp32, returned in g.dtype."""
+def grid_sample_transpose_plain(g: torch.Tensor, grid: torch.Tensor, out_hw) -> torch.Tensor:
+    """Plain version of kernel B, the adjoint of `grid_sample` as a primal
+    op: out[m] = sum_n S[n, m] g[n] into an (H, W) = out_hw image,
+    accumulated in fp32, returned in g.dtype."""
     B, Hg, Wg, C = g.shape
     H, W = out_hw
     idx, sep = _corners(grid, H, W)
@@ -161,6 +170,42 @@ def _check_grid(name: str, grid: torch.Tensor, B: int):
                          f"{grid.dtype} {tuple(grid.shape)}")
 
 
+def grid_sample(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """`grid_sample_plain`'s function: kernel A-fwd on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return grid_sample_plain(x, grid)
+    _check_cuda("grid_sample", x)
+    B, H, W, C = x.shape
+    _check_grid("grid_sample", grid, B)
+    _check_like("grid_sample", x, x=x, grid=grid)
+    Hg, Wg = grid.shape[1:3]
+    out = torch.empty((B, Hg, Wg, C), dtype=x.dtype, device=x.device)
+    _kernels.call("grid_sample_fwd", x.data_ptr(), grid.data_ptr(), out.data_ptr(),
+                  B, H, W, Hg, Wg, C, int(x.dtype == torch.bfloat16),
+                  _kernels.stream_handle(x.device))
+    return out
+
+
+def grid_sample_transpose(g: torch.Tensor, grid: torch.Tensor, out_hw) -> torch.Tensor:
+    """`grid_sample_transpose_plain`'s function: kernel B on a CUDA tensor,
+    the plain version on a CPU tensor."""
+    if g.device.type == "cpu":
+        return grid_sample_transpose_plain(g, grid, out_hw)
+    _check_cuda("grid_sample_transpose", g)
+    B, Hg, Wg, C = g.shape
+    _check_grid("grid_sample_transpose", grid, B)
+    if tuple(grid.shape[1:3]) != (Hg, Wg):
+        raise ValueError("grid_sample_transpose: grid must be (B, Hg, Wg, 2) like g")
+    _check_like("grid_sample_transpose", g, g=g, grid=grid)
+    H, W = out_hw
+    out = torch.zeros((B, H, W, C), dtype=torch.float32, device=g.device)
+    _kernels.call("grid_sample_transpose", g.data_ptr(), grid.data_ptr(), out.data_ptr(),
+                  B, H, W, Hg, Wg, C, int(g.dtype == torch.bfloat16),
+                  _kernels.stream_handle(g.device))
+    return out.to(g.dtype)
+
+
 def token_scatter_plain(a: torch.Tensor, grid: torch.Tensor, m: torch.Tensor,
                         residual: bool = False):
     """Plain version of kernels D and E. a (F, H, W, C) logits, grid
@@ -168,9 +213,9 @@ def token_scatter_plain(a: torch.Tensor, grid: torch.Tensor, m: torch.Tensor,
     kernels and returns (ew, zaw) in a.dtype, and with `residual` also
     eaw = exp(S a - m) (F, H, W, C) in a.dtype."""
     F_, H, W, C = a.shape
-    aw = grid_sample(a.float(), grid)
+    aw = grid_sample_plain(a.float(), grid)
     eaw = torch.exp(aw - m.float()[:, None, None, :])
-    ew = grid_sample_transpose(eaw, grid, (H, W))
+    ew = grid_sample_transpose_plain(eaw, grid, (H, W))
     out = (ew.to(a.dtype), eaw.sum(dim=(1, 2)).to(a.dtype))
     return out + (eaw.to(a.dtype),) if residual else out
 
@@ -301,7 +346,57 @@ class _TokenSoftmaxScatter(torch.autograd.Function):
         return da, corner_weights_vjp(grid, dw_c + dw_a, H, W)
 
 
-def token_softmax_scatter(a: torch.Tensor, flow: torch.Tensor):
+class _FlowWarp(torch.autograd.Function):
+    """`grid_sample(x, grid)` with the VJP of the JAX package's
+    `grid_sample_pallas` (smow_net_tpu/ops/pallas/warp.py `_fwd`/`_bwd`):
+    forward A, backward A-bwd and the weight-gradient rows into dgrid. Each
+    op routes by device."""
+
+    @staticmethod
+    def forward(ctx, x, grid):
+        ctx.save_for_backward(x, grid)
+        return grid_sample(x, grid)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, grid = ctx.saved_tensors
+        dx, dw = grid_sample_bwd(x, gy.to(x.dtype).contiguous(), grid)
+        return dx, corner_weights_vjp(grid, dw, *x.shape[1:3])
+
+
+class _FlowWarpTranspose(torch.autograd.Function):
+    """`grid_sample_transpose(g, grid, (H, W))` with the VJP of the JAX
+    package's `grid_sample_transpose` (smow_net_tpu/ops/warp.py:137-214):
+    forward B, backward C and the weight-gradient rows into dgrid."""
+
+    @staticmethod
+    def forward(ctx, g, grid, H, W):
+        ctx.save_for_backward(g, grid)
+        return grid_sample_transpose(g, grid, (H, W))
+
+    @staticmethod
+    def backward(ctx, xbar):
+        g, grid = ctx.saved_tensors
+        dg, dw = grid_sample_t_vjp(xbar.contiguous(), g, grid)
+        return dg, corner_weights_vjp(grid, dw, *xbar.shape[1:3]), None, None
+
+
+def flow_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Warp x (B, H, W, C) by a pixel-space flow (B, H, W, 2) (the reference
+    OFW warp, models/SMOW_Net.py:612-631): bilinear, border, align_corners,
+    on `flow_grid(flow)`; differentiable in x and flow."""
+    B, H, W, _ = x.shape
+    return _FlowWarp.apply(x.contiguous(), flow_grid(flow, H, W))
+
+
+def flow_warp_transpose(g: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Adjoint of `flow_warp` as a primal op, on its own grid from the same
+    flow; differentiable in g and flow."""
+    B, H, W, _ = g.shape
+    return _FlowWarpTranspose.apply(g.contiguous(), flow_grid(flow, H, W), H, W)
+
+
+def token_softmax_scatter(a: torch.Tensor, flow: torch.Tensor, train_chain=None):
     """The OFW token chain (smow_net_tpu/ops/warp.py:217-257):
 
         aw  = flow_warp(a, flow)              (bilinear, border, align=True)
@@ -313,11 +408,27 @@ def token_softmax_scatter(a: torch.Tensor, flow: torch.Tensor):
     the caller divides ew by max(zaw, tiny). zaw >= 1 is not guaranteed: a
     warped-logit spread above ~87 underflows every exp and zaw -> 0.
 
-    Differentiable in a and flow when either needs a gradient (kernel E and
-    the backward kernels); otherwise one kernel-D call with no residual."""
+    Without a gradient it is one kernel-D call with no residual. When a or
+    flow needs a gradient, `train_chain` picks one of the JAX package's
+    train lowerings (smow_net_tpu/ops/warp.py:282-313):
+      "hybrid"   kernel E forward; C, an elementwise pass and A-bwd backward
+                 (exp of the fp32 warped logits);
+      "unfused"  flow_warp (A, A-bwd), exp in a's dtype, flow_warp_transpose
+                 (B, C), each warp on its own grid, in JAX's dtype flow;
+      None       as the JAX package's default picks by shape
+                 (smow_net_tpu/ops/warp.py:292-299): the hybrid at W * C <=
+                 1024, the unfused chain above.
+    Both chains take C = 8 and 16 at any W; the rule only picks one."""
     B, H, W, C = a.shape
-    grid = flow_grid(flow, H, W)
     a = a.contiguous()
-    if torch.is_grad_enabled() and (a.requires_grad or grid.requires_grad):
-        return _TokenSoftmaxScatter.apply(a, grid)
-    return token_scatter(a, grid, a.amax(dim=(1, 2)).float())
+    if not (torch.is_grad_enabled() and (a.requires_grad or flow.requires_grad)):
+        return token_scatter(a, flow_grid(flow, H, W), a.amax(dim=(1, 2)).float())
+    if train_chain is None:
+        train_chain = "hybrid" if W * C <= 1024 else "unfused"
+    if train_chain == "hybrid":
+        return _TokenSoftmaxScatter.apply(a, flow_grid(flow, H, W))
+    if train_chain != "unfused":
+        raise ValueError(f"token_softmax_scatter: unknown train_chain {train_chain!r}")
+    m = a.detach().amax(dim=(1, 2), keepdim=True)
+    eaw = torch.exp(flow_warp(a, flow) - m)
+    return flow_warp_transpose(eaw, flow), eaw.sum(dim=(1, 2))

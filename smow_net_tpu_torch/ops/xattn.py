@@ -68,14 +68,15 @@ def cross_layer_head1_plain(x, ln1_scale, ln1_bias, wq, k, v, w_out, b_out,
     return h @ w2.to(dt) + b2.to(dt) + y1
 
 
-_LAYER_SHAPE = (128, 8, 8, 256)   # (D, heads, M, hidden) built into kernels F and F-bwd
+# (D, heads, M, hidden) built into kernels F and F-bwd: SMOW_Net's and SMOW_Net_LW's decoders
+_LAYER_SHAPES = ((128, 8, 8, 256), (64, 8, 8, 128))
 _ARG_NAMES = ("x", "ln1_scale", "ln1_bias", "wq", "k", "v", "w_out", "b_out",
               "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
 
 
 def _slab_layout(D, h, hidden):
     """Kernel F-bwd's per-block partial sums: (argument, shape) in the order
-    of the kOff* offsets in csrc/xattn_layer_bwd.cu."""
+    of the kOff* offsets of `Slab<D>` in csrc/xattn_layer_bwd.cu."""
     return (("w1", (D, hidden)), ("w2", (hidden, D)), ("wq", (D, h)), ("w_out", (h, D)),
             ("ln1_scale", (D,)), ("ln1_bias", (D,)), ("ln2_scale", (D,)),
             ("ln2_bias", (D,)), ("b_out", (D,)), ("b2", (D,)), ("b1", (hidden,)))
@@ -95,9 +96,9 @@ def _kernel_args(args, scale, perm):
     B, N, D = x.shape
     M, h = k.shape[1], k.shape[2]
     hidden = args[10].shape[1]
-    if (D, h, M, hidden) != _LAYER_SHAPE or k.shape[0] != B:
+    if (D, h, M, hidden) not in _LAYER_SHAPES or k.shape[0] != B:
         raise ValueError(f"cross_layer_head1: kernel F is built for (D, heads, M, hidden)"
-                         f" = {_LAYER_SHAPE}, got {(D, h, M, hidden)}")
+                         f" in {_LAYER_SHAPES}, got {(D, h, M, hidden)}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("cross_layer_head1: x must be contiguous and 16-byte aligned")
     expect = {"ln1_scale": (D,), "ln1_bias": (D,), "wq": (D, h), "w_out": (h, D),

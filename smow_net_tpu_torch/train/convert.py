@@ -1,5 +1,6 @@
 """JAX variables -> the port's state_dict (the inverse of
-smow_net_tpu/train/convert.py `load_smownet_state_dict`).
+smow_net_tpu/train/convert.py `load_smownet_state_dict` and
+`load_smownet_lw_state_dict`).
 
 `variables` is the JAX `{"params", "batch_stats"}` tree as nested dicts of
 numpy arrays. Layout rules, JAX (channels-last) -> torch:
@@ -8,7 +9,8 @@ numpy arrays. Layout rules, JAX (channels-last) -> torch:
   Dense         (I, O)                    -> Linear (O, I)
   BatchNorm     scale/bias + mean/var     -> weight/bias + running stats
   tmix          time_5 (1,1,1,C,C), time_mix (4,C,C) -> conv3d_time_{5,1..4}
-                as ConvTranspose3d (I, O, 1, 1, 1)
+                as ConvTranspose3d (I, O, 1, 1, 1); SMOW_Net_LW's conv blocks
+                -> conv3d_t{5,1..4} as Conv3d (O, I, 1, 1, 1)
 """
 
 from __future__ import annotations
@@ -39,114 +41,178 @@ def j2t_linear(w: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(w.T)
 
 
-def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
-    params, stats = variables["params"], variables["batch_stats"]
-    sd: Dict[str, torch.Tensor] = {}
+class _Writer:
+    """Writes torch keys from the JAX `params` / `batch_stats` trees."""
 
-    def put(key, value):
-        sd[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+    def __init__(self, variables):
+        self.params, self.stats = variables["params"], variables["batch_stats"]
+        self.sd: Dict[str, torch.Tensor] = {}
 
-    def node(tree, path):
-        for p in path:
-            tree = tree[p]
-        return tree
+    def put(self, key, value):
+        self.sd[key] = torch.from_numpy(np.array(value, dtype=np.float32))
 
-    def bn(dst, *path):
-        p, s = node(params, path), node(stats, path)
-        put(dst + ".weight", p["scale"])
-        put(dst + ".bias", p["bias"])
-        put(dst + ".running_mean", s["mean"])
-        put(dst + ".running_var", s["var"])
-        sd[dst + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    def bn(self, dst, *path):
+        p, s = self.params, self.stats
+        for k in path:
+            p, s = p[k], s[k]
+        self.put(dst + ".weight", p["scale"])
+        self.put(dst + ".bias", p["bias"])
+        self.put(dst + ".running_mean", s["mean"])
+        self.put(dst + ".running_var", s["var"])
+        self.sd[dst + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
-    def conv(dst, p, bias=True):
-        put(dst + ".weight", j2t_conv(p["kernel"]))
+    def conv(self, dst, p, bias=True):
+        self.put(dst + ".weight", j2t_conv(p["kernel"]))
         if bias:
-            put(dst + ".bias", p["bias"])
+            self.put(dst + ".bias", p["bias"])
 
-    def linear(dst, p, bias=True):
-        put(dst + ".weight", j2t_linear(p["kernel"]))
+    def linear(self, dst, p, bias=True):
+        self.put(dst + ".weight", j2t_linear(p["kernel"]))
         if bias:
-            put(dst + ".bias", p["bias"])
+            self.put(dst + ".bias", p["bias"])
 
-    def dconv(dst, p):
-        conv(dst + ".conv3d_spatial", p["spatial"], bias=False)
-        for i in (1, 2, 3):
-            conv(f"{dst}.conv3d_time_{i}", p[f"time_{i}"], bias=False)
+    def ofw_tokens(self):
+        """OFW and the token transformer encoder (both models)."""
+        params = self.params
+        for i, idx in enumerate((0, 3, 6)):
+            self.conv(f"OFW.down.{idx}", params["OFW"][f"down{i}_conv"])
+            self.bn(f"OFW.down.{idx + 1}", "OFW", f"down{i}_bn")
+        self.conv("OFW.flow_make", params["OFW"]["flow_make"], bias=False)
+        te = params["Transformer_Encoder"]
+        tl = "Transformer_Encoder.transformer.layers.0"
+        self.put("Transformer_Encoder.pos_embedding", te["pos_embedding"])
+        self.conv("Transformer_Encoder.conv_a", te["conv_a"])
+        tr = te["transformer"]
+        self.put(tl + ".0.norm.weight", tr["norm1"]["scale"])
+        self.put(tl + ".0.norm.bias", tr["norm1"]["bias"])
+        self.linear(tl + ".0.fn.to_qkv", tr["attn"]["to_qkv"], bias=False)
+        self.linear(tl + ".0.fn.to_out.0", tr["attn"]["to_out"])
+        self.put(tl + ".1.norm.weight", tr["norm2"]["scale"])
+        self.put(tl + ".1.norm.bias", tr["norm2"]["bias"])
+        self.linear(tl + ".1.fn.net.0", tr["ff"]["fc1"])
+        self.linear(tl + ".1.fn.net.3", tr["ff"]["fc2"])
 
+    def mix(self, dst, mix, prefix, conv_layout, bias):
+        """The cyclic temporal mixers `dst.{prefix}{1..5}`: (I, O) weights
+        for ConvTranspose3d, (O, I) with `conv_layout` (Conv3d)."""
+        kernels = [mix["time_mix_kernel"][i] for i in range(4)] + [mix["time_5_kernel"][0, 0, 0]]
+        biases = ([mix["time_mix_bias"][i] for i in range(4)] + [mix["time_5_bias"]]
+                  if bias else [None] * 5)
+        for i, (w, b) in enumerate(zip(kernels, biases), 1):
+            w = w.T if conv_layout else w
+            self.put(f"{dst}.{prefix}{i}.weight", w[..., None, None, None])
+            if b is not None:
+                self.put(f"{dst}.{prefix}{i}.bias", b)
+
+    def pixel_decoder_head(self):
+        """The pixel transformer decoder and the classifier (both models)."""
+        d = self.params["Transformer_Decoder"]["layer0"]
+        td = "Transformer_Decoder.transformer_decoder.layers.0"
+        self.put(td + ".0.fn.norm.weight", d["norm1"]["scale"])
+        self.put(td + ".0.fn.norm.bias", d["norm1"]["bias"])
+        for nm in ("q", "k", "v"):
+            self.linear(f"{td}.0.fn.fn.to_{nm}", d["attn"][f"to_{nm}"], bias=False)
+        self.linear(td + ".0.fn.fn.to_out.0", d["attn"]["to_out"])
+        self.put(td + ".1.fn.norm.weight", d["norm2"]["scale"])
+        self.put(td + ".1.fn.norm.bias", d["norm2"]["bias"])
+        self.linear(td + ".1.fn.fn.net.0", d["ff"]["fc1"])
+        self.linear(td + ".1.fn.fn.net.3", d["ff"]["fc2"])
+        self.conv("decoder.conv1", self.params["classifier_conv"], bias=False)
+
+
+def _smownet(w: _Writer) -> None:
+    params = w.params
     # ---- encoder ----
     r = params["resnet"]
+
+    def dconv(dst, p):
+        w.conv(dst + ".conv3d_spatial", p["spatial"], bias=False)
+        for i in (1, 2, 3):
+            w.conv(f"{dst}.conv3d_time_{i}", p[f"time_{i}"], bias=False)
+
     dconv("resnet.conv1", r["conv1"])
-    bn("resnet.bn1", "resnet", "bn1")
+    w.bn("resnet.bn1", "resnet", "bn1")
     for li in range(1, 5):
         for bi in range(2):
             src, dst = f"layer{li}_{bi}", f"resnet.layer{li}.{bi}"
             for ci in (1, 2):
                 dconv(f"{dst}.conv{ci}", r[src][f"conv{ci}"])
-                bn(f"{dst}.bn{ci}", "resnet", src, f"bn{ci}")
+                w.bn(f"{dst}.bn{ci}", "resnet", src, f"bn{ci}")
             if "downsample_conv" in r[src]:
-                conv(dst + ".downsample.0", r[src]["downsample_conv"], bias=False)
-                bn(dst + ".downsample.1", "resnet", src, "downsample_bn")
+                w.conv(dst + ".downsample.0", r[src]["downsample_conv"], bias=False)
+                w.bn(dst + ".downsample.1", "resnet", src, "downsample_bn")
 
     # ---- BasicConv3d reductions ----
     for name in ("Conv3d", "Conv3d1", "Conv3d2", "Conv3d3", "Conv3d4"):
-        conv(name + ".conv_bn.0", params[name]["conv"])
-        bn(name + ".conv_bn.1", name, "bn")
+        w.conv(name + ".conv_bn.0", params[name]["conv"])
+        w.bn(name + ".conv_bn.1", name, "bn")
 
-    # ---- OFW ----
-    for i, idx in enumerate((0, 3, 6)):
-        conv(f"OFW.down.{idx}", params["OFW"][f"down{i}_conv"])
-        bn(f"OFW.down.{idx + 1}", "OFW", f"down{i}_bn")
-    conv("OFW.flow_make", params["OFW"]["flow_make"], bias=False)
-
-    # ---- token transformer encoder ----
-    te = params["Transformer_Encoder"]
-    tl = "Transformer_Encoder.transformer.layers.0"
-    put("Transformer_Encoder.pos_embedding", te["pos_embedding"])
-    conv("Transformer_Encoder.conv_a", te["conv_a"])
-    tr = te["transformer"]
-    put(tl + ".0.norm.weight", tr["norm1"]["scale"])
-    put(tl + ".0.norm.bias", tr["norm1"]["bias"])
-    linear(tl + ".0.fn.to_qkv", tr["attn"]["to_qkv"], bias=False)
-    linear(tl + ".0.fn.to_out.0", tr["attn"]["to_out"])
-    put(tl + ".1.norm.weight", tr["norm2"]["scale"])
-    put(tl + ".1.norm.bias", tr["norm2"]["bias"])
-    linear(tl + ".1.fn.net.0", tr["ff"]["fc1"])
-    linear(tl + ".1.fn.net.3", tr["ff"]["fc2"])
+    w.ofw_tokens()
 
     # ---- decoder 3D blocks ----
     for name in ("C3DT1", "C3DT2", "C3DT3", "C3DT4", "C3DT5"):
         p = params[name]
-        put(name + ".conv3d_spatial.weight", j2t_conv_transpose(p["spatial"]["kernel"]))
-        put(name + ".conv3d_spatial.bias", p["spatial"]["bias"])
-        mix = p["tmix"]
-        put(name + ".conv3d_time_5.weight", mix["time_5_kernel"][0, 0, 0][..., None, None, None])
-        put(name + ".conv3d_time_5.bias", mix["time_5_bias"])
-        for i in (1, 2, 3, 4):
-            put(f"{name}.conv3d_time_{i}.weight",
-                mix["time_mix_kernel"][i - 1][..., None, None, None])
-            put(f"{name}.conv3d_time_{i}.bias", mix["time_mix_bias"][i - 1])
-        bn(name + ".batch", name, "bn")
+        w.put(name + ".conv3d_spatial.weight", j2t_conv_transpose(p["spatial"]["kernel"]))
+        w.put(name + ".conv3d_spatial.bias", p["spatial"]["bias"])
+        w.mix(name, p["tmix"], "conv3d_time_", conv_layout=False, bias=True)
+        w.bn(name + ".batch", name, "bn")
     for name in ("C3D1", "C3D2", "C3D3", "C3D4", "C3D5"):
         base = name + ".conv_block_2_3d"
-        conv(base + ".0", params[name]["conv1"])
-        bn(base + ".1", name, "bn1")
-        conv(base + ".3", params[name]["conv2"])
-        bn(base + ".4", name, "bn2")
+        w.conv(base + ".0", params[name]["conv1"])
+        w.bn(base + ".1", name, "bn1")
+        w.conv(base + ".3", params[name]["conv2"])
+        w.bn(base + ".4", name, "bn2")
 
-    # ---- pixel transformer decoder ----
-    d = params["Transformer_Decoder"]["layer0"]
-    td = "Transformer_Decoder.transformer_decoder.layers.0"
-    put(td + ".0.fn.norm.weight", d["norm1"]["scale"])
-    put(td + ".0.fn.norm.bias", d["norm1"]["bias"])
-    for nm in ("q", "k", "v"):
-        linear(f"{td}.0.fn.fn.to_{nm}", d["attn"][f"to_{nm}"], bias=False)
-    linear(td + ".0.fn.fn.to_out.0", d["attn"]["to_out"])
-    put(td + ".1.fn.norm.weight", d["norm2"]["scale"])
-    put(td + ".1.fn.norm.bias", d["norm2"]["bias"])
-    linear(td + ".1.fn.fn.net.0", d["ff"]["fc1"])
-    linear(td + ".1.fn.fn.net.3", d["ff"]["fc2"])
+    w.pixel_decoder_head()
 
-    # ---- classifier head ----
-    conv("decoder.conv1", params["classifier_conv"], bias=False)
-    return sd
+
+def _smownet_lw(w: _Writer) -> None:
+    params = w.params
+    # ---- MobileNetV2 backbone (torchvision keys, features_18 included) ----
+    bb = params["backbone"]
+
+    def cbr(dst, *path):            # conv / BN / ReLU6 triple
+        p = bb
+        for k in path:
+            p = p[k]
+        w.conv(dst + ".0", p["conv"], bias=False)
+        w.bn(dst + ".1", "backbone", *path, "bn")
+
+    cbr("backbone.features.0", "features_0")
+    cbr("backbone.features.18", "features_18")
+    for idx in range(1, 18):
+        src, dst = f"features_{idx}", f"backbone.features.{idx}.conv"
+        sub = 0
+        if "pw" in bb[src]:          # expand ratio != 1
+            cbr(f"{dst}.0", src, "pw")
+            sub = 1
+        cbr(f"{dst}.{sub}", src, "dw")
+        w.conv(f"{dst}.{sub + 1}", bb[src]["pw_linear"], bias=False)
+        w.bn(f"{dst}.{sub + 2}", "backbone", src, "pw_linear_bn")
+
+    w.ofw_tokens()
+
+    # ---- decoder 3D blocks: bias-free mixers in two layouts ----
+    for name in ("C3DT1", "C3DT2", "C3DT3", "C3DT4", "C3DT5"):
+        p = params[name]
+        w.put(name + ".conv3d_spatial.weight", j2t_conv_transpose(p["spatial"]["kernel"]))
+        w.put(name + ".conv3d_spatial.bias", p["spatial"]["bias"])
+        w.mix(name, p["tmix"], "conv3d_time_", conv_layout=False, bias=False)
+        w.bn(name + ".batch", name, "bn")
+    for name in ("C3D1", "C3D2", "C3D3", "C3D4", "C3D5"):
+        w.conv(name + ".conv3d_s", params[name]["spatial"])
+        w.mix(name, params[name]["tmix"], "conv3d_t", conv_layout=True, bias=False)
+        w.bn(name + ".b", name, "bn")
+
+    w.pixel_decoder_head()
+
+
+_MODELS = {"smow_net": _smownet, "smow_net_lw": _smownet_lw}
+
+
+def state_dict_from_jax(variables, model: str = "smow_net") -> Dict[str, torch.Tensor]:
+    """The port's state_dict of `model` ("smow_net" or "smow_net_lw") from
+    the JAX variables; BN running statistics come from `batch_stats`."""
+    w = _Writer(variables)
+    _MODELS[model](w)
+    return w.sd

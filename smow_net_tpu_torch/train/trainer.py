@@ -69,7 +69,13 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
-        grads = [p.grad for p in self.params if p.grad is not None]
+        # optax updates every leaf: a parameter that got no gradient (SMOW_Net_LW's
+        # features.18, which feeds no tap) takes a zero one, so its weight decay
+        # and moments move as in JAX
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
         if self.clip and self.clip > 0:
             torch._foreach_clamp_min_(grads, -self.clip)
             torch._foreach_clamp_max_(grads, self.clip)

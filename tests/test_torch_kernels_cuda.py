@@ -1,4 +1,5 @@
-"""The port's hand-written CUDA kernels against their plain versions, on the
+"""The port's hand-written CUDA kernels (D, E, C, A-fwd, A-bwd, B, F and
+F-bwd, the layer at D = 128 and 64) against their plain versions, on the
 card. Marked `cuda`; each test skips when no CUDA device is present (there
 is no interpret mode for a CUDA kernel). On a GPU machine without JAX,
 skip tests/conftest.py (it configures JAX):
@@ -51,6 +52,65 @@ def test_token_scatter_kernel_matches_plain(dev, C, dtype):
     rtol = 1e-5 if dtype == torch.float32 else BF16_REL
     _close(ew, ew_p, 1e-5, rtol)
     _close(zaw, zaw_p, 1e-5, rtol)
+
+
+def _layer_inputs(dev, rng, D, B=2, N=1000):
+    """The decoder layer's 14 inputs at width D (h = 8, M = 8, hidden 2D);
+    N = 1000 leaves a ragged tail of the kernels' 64-row tiles."""
+    h, M, hid = 8, 8, 2 * D
+
+    def f(*s, scale=1.0, off=0.0):
+        return torch.from_numpy((rng.normal(size=s) * scale + off).astype(np.float32)).to(dev)
+
+    return [f(B, N, D), f(D, scale=0.2, off=1.0), f(D, scale=0.1), f(D, h, scale=0.1),
+            f(B, M, h), f(B, M, h), f(h, D, scale=0.1), f(D, scale=0.1),
+            f(D, scale=0.2, off=1.0), f(D, scale=0.1), f(D, hid, scale=D ** -0.5),
+            f(hid, scale=0.1), f(hid, D, scale=hid ** -0.5), f(D, scale=0.1)], f(B, N, D)
+
+
+def _random_perm(dev, rng, D):
+    perm = torch.zeros(D, D, device=dev)
+    perm[torch.arange(D), torch.from_numpy(rng.permutation(D)).to(dev)] = 1.0
+    return perm
+
+
+@pytest.mark.parametrize("use_perm", [False, True], ids=["no_perm", "perm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_xattn_layer_kernel_matches_plain_d64(dev, use_perm, dtype):
+    """Kernel F at SMOW_Net_LW's width, D = 64, hidden 128."""
+    rng = np.random.default_rng(3)
+    args, _ = _layer_inputs(dev, rng, 64)
+    args = [a.to(dtype) for a in args]
+    perm = _random_perm(dev, rng, 64) if use_perm else None
+    before = _kernels.launches["xattn_layer_fwd"]
+    out = xattn.cross_layer_head1(*args, scale=64 ** -0.5, perm=perm)
+    torch.cuda.synchronize()
+    assert _kernels.launches["xattn_layer_fwd"] == before + 1
+    want = xattn.cross_layer_head1_plain(*[a.float() for a in args], scale=64 ** -0.5,
+                                         perm=perm)
+    _close(out, want, 1e-4, 1e-5 if dtype == torch.float32 else BF16_REL)
+
+
+@pytest.mark.parametrize("use_perm", [False, True], ids=["no_perm", "perm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_xattn_layer_bwd_kernel_matches_plain_d64(dev, use_perm, dtype):
+    """Kernel F-bwd at D = 64: the 14 input gradients, bounds as at D = 128."""
+    rng = np.random.default_rng(4)
+    args, gy = _layer_inputs(dev, rng, 64)
+    args = [a.to(dtype).requires_grad_() for a in args]
+    perm = _random_perm(dev, rng, 64) if use_perm else None
+    before = _kernels.launches["xattn_layer_bwd"]
+    out = xattn.cross_layer_head1(*args, scale=64 ** -0.5, perm=perm)
+    got = torch.autograd.grad(out, args, gy.to(dtype))
+    torch.cuda.synchronize()
+    assert _kernels.launches["xattn_layer_bwd"] == before + 1
+    ref = [a.detach().float().requires_grad_() for a in args]
+    want = torch.autograd.grad(
+        xattn.cross_layer_head1_plain(*ref, scale=64 ** -0.5, perm=perm), ref,
+        gy.to(dtype).float())
+    for g, w, a in zip(got, want, args):
+        assert g.dtype == a.dtype and g.shape == a.shape
+        _close(g, w, 1e-5, 1e-4 if dtype == torch.float32 else BF16_REL)
 
 
 @pytest.mark.parametrize("use_perm", [False, True], ids=["no_perm", "perm"])
@@ -194,7 +254,75 @@ def test_xattn_layer_bwd_kernel_matches_plain(dev, use_perm, dtype):
         _close(g, w, 1e-5, 1e-4 if dtype == torch.float32 else BF16_REL)
 
 
+@pytest.mark.parametrize("C", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_grid_sample_kernels_match_plain(dev, C, dtype):
+    """Kernels A-fwd (`grid_sample`) and B (`grid_sample_transpose`) on free
+    and border-clamped flows: one rounding of the dtype of the fp32 plain
+    result on the same inputs."""
+    rtol = 1e-5 if dtype == torch.float32 else BF16_REL
+    for clamp in (False, True):
+        a, grid, other = _token_inputs(dev, C, dtype, 40 + C)
+        if clamp:
+            grid = grid.clone()
+            grid[..., 0] = 1.0
+        for name, fn, plain, x, size in (
+                ("grid_sample_fwd", warp.grid_sample, warp.grid_sample_plain, a, ()),
+                ("grid_sample_transpose", warp.grid_sample_transpose,
+                 warp.grid_sample_transpose_plain, other, ((24, 64),))):
+            before = _kernels.launches[name]
+            out = fn(x, grid, *size)
+            torch.cuda.synchronize()
+            assert _kernels.launches[name] == before + 1 and out.dtype == dtype
+            _close(out, plain(x.float(), grid, *size), 1e-5, rtol)
+
+
+def test_unfused_token_chain_gradient_kernel_path_matches_plain(dev):
+    """The unfused chain's whole VJP (da, dflow), fp32: kernels A-fwd, B, C,
+    A-bwd against the same chain on the plain ops (1e-4 of the largest
+    element, as the hybrid's test)."""
+    rng = np.random.default_rng(6)
+    a0 = rng.normal(size=(4, 32, 64, 8)).astype(np.float32)
+    flow0 = (rng.normal(size=(4, 32, 64, 2)) * 3).astype(np.float32)
+    r = torch.from_numpy(rng.normal(size=(4, 32, 64, 8)).astype(np.float32)).to(dev)
+    s = torch.from_numpy(rng.normal(size=(4, 8)).astype(np.float32)).to(dev)
+
+    def grads():
+        a = torch.from_numpy(a0).to(dev).requires_grad_()
+        flow = torch.from_numpy(flow0).to(dev).requires_grad_()
+        ew, zaw = warp.token_softmax_scatter(a, flow, train_chain="unfused")
+        return torch.autograd.grad((ew * r).sum() + (zaw * s).sum(), (a, flow))
+
+    names = ("grid_sample_fwd", "grid_sample_transpose", "grid_sample_t_vjp",
+             "grid_sample_bwd")
+    before = {n: _kernels.launches[n] for n in names}
+    got = grads()
+    torch.cuda.synchronize()
+    assert all(_kernels.launches[n] == before[n] + 1 for n in names)
+    ops = ("grid_sample", "grid_sample_transpose", "grid_sample_t_vjp", "grid_sample_bwd")
+    saved = [getattr(warp, n) for n in ops]
+    for n in ops:
+        setattr(warp, n, getattr(warp, n + "_plain"))
+    try:
+        want = grads()
+    finally:
+        for n, fn in zip(ops, saved):
+            setattr(warp, n, fn)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-5, 1e-4)
+
+
 def test_wrappers_raise_on_shapes_the_kernels_do_not_take(dev):
     a = torch.zeros(2, 8, 8, 4, device=dev)             # C = 4: no kernel built
+    grid = torch.zeros(2, 8, 8, 2, device=dev)
     with pytest.raises(ValueError):
-        warp.token_scatter(a, torch.zeros(2, 8, 8, 2, device=dev), torch.zeros(2, 4, device=dev))
+        warp.token_scatter(a, grid, torch.zeros(2, 4, device=dev))
+    with pytest.raises(ValueError):
+        warp.grid_sample(a, grid)
+    with pytest.raises(ValueError):
+        warp.grid_sample_transpose(a, grid, (8, 8))
+    with pytest.raises(ValueError):                    # grid in bf16
+        warp.grid_sample(torch.zeros(2, 8, 8, 8, device=dev), grid.bfloat16())
+    args, _ = _layer_inputs(dev, np.random.default_rng(0), 96, N=64)
+    with pytest.raises(ValueError):                    # D = 96: no kernel built
+        xattn.cross_layer_head1(*args, scale=96 ** -0.5)

@@ -120,6 +120,10 @@ def test_port_imports_no_jax():
         "         'mask': (torch.rand(1, 64, 64, generator=g) > 0.8).float()}\n"
         "loss = make_train_step(m, opt)(state, batch)\n"
         "assert bool(torch.isfinite(loss)) and state.step == 1 and opt.count == 1\n"
+        "lw = get_model('smow_net_lw', device='cpu').eval()\n"
+        "with torch.inference_mode():\n"
+        "    y = lw(x, x.flip(-1))\n"
+        "assert y.shape == (1, 1, 64, 64) and bool(torch.isfinite(y).all())\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'flax', 'smow_net_tpu')]\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

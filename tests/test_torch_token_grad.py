@@ -172,14 +172,14 @@ def test_plain_backward_ops_are_the_autograd_of_the_plain_forward():
     xt, gt = torch.from_numpy(x), torch.from_numpy(g)
     grt = torch.from_numpy(grid).requires_grad_()
     xr = xt.clone().requires_grad_()
-    out = twarp.grid_sample(xr, grt)
+    out = twarp.grid_sample_plain(xr, grt)
     dx_a, dgrid_a = torch.autograd.grad(out, (xr, grt), gt)
     dx, dw = twarp.grid_sample_bwd_plain(xt, gt, grt.detach())
     np.testing.assert_allclose(dx.numpy(), dx_a.numpy(), **TOL)
     np.testing.assert_allclose(twarp.corner_weights_vjp(grt.detach(), dw, 16, 16).numpy(),
                                dgrid_a.numpy(), **TOL)
     gr = gt.clone().requires_grad_()
-    out = twarp.grid_sample_transpose(gr, grt, (16, 16))
+    out = twarp.grid_sample_transpose_plain(gr, grt, (16, 16))
     dg_a, dgrid_a = torch.autograd.grad(out, (gr, grt), xt)
     dg, dw = twarp.grid_sample_t_vjp_plain(xt, gt, grt.detach())
     np.testing.assert_allclose(dg.numpy(), dg_a.numpy(), **TOL)
@@ -200,5 +200,5 @@ def test_nan_grid_gives_in_range_corner_indices():
     assert int(x0[0, 1, 2]) == 0 and int(y0[0, 3, 3]) == 0
     assert torch.isnan(wx0[0, 1, 2]) and torch.isnan(wy1[0, 3, 3])
     x = torch.randn(1, 8, 8, 8, generator=torch.Generator().manual_seed(0))
-    out = twarp.grid_sample(x, grid)
+    out = twarp.grid_sample_plain(x, grid)
     assert torch.isnan(out[0, 1, 2]).all() and torch.isfinite(out[0, 0]).all()

@@ -1,8 +1,8 @@
 """The port's plain warp ops (smow_net_tpu_torch/ops/warp.py) against the JAX
 package on CPU: `token_scatter_plain` (the plain version of kernel D)
 against JAX's Pallas `token_scatter_pallas` in interpret mode and JAX's XLA
-`token_softmax_scatter`; `grid_sample` and `grid_sample_transpose` against
-their JAX twins.
+`token_softmax_scatter`; `grid_sample_plain` and `grid_sample_transpose_plain`
+(the plain versions of kernels A and B) against their JAX twins.
 
 Tolerance 1e-5 (rtol and atol) in fp32, as tests/test_pallas_warp.py uses
 for the same kernel: both sides lerp and exponentiate in fp32 and differ
@@ -93,10 +93,11 @@ def test_grid_sample_and_transpose_match_jax():
     x = rng.normal(size=(2, 16, 24, 8)).astype(np.float32)
     g = rng.normal(size=(2, 16, 24, 8)).astype(np.float32)
     grid = rng.uniform(-1.3, 1.3, size=(2, 16, 24, 2)).astype(np.float32)
-    out = twarp.grid_sample(torch.from_numpy(x), torch.from_numpy(grid))
+    out = twarp.grid_sample_plain(torch.from_numpy(x), torch.from_numpy(grid))
     ref = jwarp.grid_sample(jnp.asarray(x), jnp.asarray(grid), "border", True)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
-    out_t = twarp.grid_sample_transpose(torch.from_numpy(g), torch.from_numpy(grid), (16, 24))
+    out_t = twarp.grid_sample_transpose_plain(torch.from_numpy(g), torch.from_numpy(grid),
+                                              (16, 24))
     ref_t = jwarp.grid_sample_transpose(jnp.asarray(g), jnp.asarray(grid), (16, 24),
                                         "border", True)
     np.testing.assert_allclose(out_t.numpy(), np.asarray(ref_t), **TOL)

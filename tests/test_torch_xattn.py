@@ -2,8 +2,9 @@
 plain version of kernel F) against JAX's `cross_layer_head1_auto` routed to
 the Pallas layer kernel in interpret mode on CPU.
 
-Shapes: N = 512 pixels, D = 128, h = 8 heads, M = 8 tokens, hidden 256,
-with and without the lane permutation. Tolerance 2e-5 (rtol and atol) in
+Shapes: N = 512 pixels, h = 8 heads, M = 8 tokens, and D = 128, hidden 256
+(SMOW_Net's decoder) or D = 64, hidden 128 (SMOW_Net_LW's, which JAX runs
+packed two rows to a lane), with and without the lane permutation. Tolerance 2e-5 (rtol and atol) in
 fp32, the bound tests/test_xattn.py holds the same kernel to: the Pallas
 kernel folds the LayerNorm affine into the projections and shares the
 softmax max across heads, which changes only the rounding."""
@@ -34,7 +35,7 @@ def pallas_layer():
     jx.set_xattn_impl("auto")
 
 
-def _inputs(seed):
+def _inputs(seed, D=D, HID=HID):
     rng = np.random.default_rng(seed)
     f = lambda *s, scale=1.0, off=0.0: (rng.normal(size=s) * scale + off).astype(np.float32)
     return [f(B, N, D), f(D, scale=0.2, off=1.0), f(D, scale=0.1),
@@ -44,7 +45,7 @@ def _inputs(seed):
             f(HID, D, scale=HID ** -0.5), f(D, scale=0.1)]
 
 
-def _perm():
+def _perm(D=D):
     """The decoder's t-major -> c-major fold, P[t*C + c, c*T + t] = 1."""
     T, C = 4, D // 4
     t_idx, c_idx = np.divmod(np.arange(D), C)
@@ -53,10 +54,10 @@ def _perm():
     return p
 
 
-@pytest.mark.parametrize("use_perm", [False, True], ids=["no_perm", "perm"])
-def test_cross_layer_head1_plain_matches_pallas(pallas_layer, use_perm):
-    args = _inputs(0)
-    perm = _perm() if use_perm else None
+def _check_plain_against_pallas(use_perm, D, HID):
+    assert px.xlayer_supported(N, D, H_, M_, HID)
+    args = _inputs(0, D, HID)
+    perm = _perm(D) if use_perm else None
     scale = D ** -0.5
     ref = jx.cross_layer_head1_auto(*map(jnp.asarray, args), scale=scale,
                                     perm=None if perm is None else jnp.asarray(perm))
@@ -66,6 +67,17 @@ def test_cross_layer_head1_plain_matches_pallas(pallas_layer, use_perm):
     # on a CPU tensor the routed op is the plain version
     routed = tx.cross_layer_head1(*map(torch.from_numpy, args), scale=scale, perm=tperm)
     assert torch.equal(routed, out)
+
+
+@pytest.mark.parametrize("use_perm", [False, True], ids=["no_perm", "perm"])
+def test_cross_layer_head1_plain_matches_pallas(pallas_layer, use_perm):
+    _check_plain_against_pallas(use_perm, D, HID)
+
+
+@pytest.mark.parametrize("use_perm", [False, True], ids=["no_perm", "perm"])
+def test_cross_layer_head1_plain_matches_pallas_d64(pallas_layer, use_perm):
+    """SMOW_Net_LW's decoder layer, D = 64, hidden 128."""
+    _check_plain_against_pallas(use_perm, 64, 128)
 
 
 def test_perm_is_an_index_gather():

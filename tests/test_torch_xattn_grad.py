@@ -3,8 +3,10 @@ under torch autograd, the plain backward of kernel F-bwd) against jax.vjp of
 JAX's `cross_layer_head1_auto` routed to the Pallas layer kernel, whose
 backward is `_layer_bwd_kernel`, in interpret mode.
 
-Shapes: N = 512 pixels, D = 128, h = 8 heads, M = 8 tokens, hidden 256,
-with and without the lane permutation; all 14 input gradients. Bound, per
+Shapes: N = 512 pixels, h = 8 heads, M = 8 tokens, and D = 128, hidden 256
+(SMOW_Net's decoder) or D = 64, hidden 128 (SMOW_Net_LW's, which JAX runs
+packed two rows to a lane), with and without the lane permutation; all 14
+input gradients. Bound, per
 gradient: 2e-5 relative plus 2e-5 of the gradient's largest element, in
 fp32. The Pallas kernel folds the LayerNorm affines into the projections
 (its gradients come back through the folds) and sums its weight gradients
@@ -41,7 +43,7 @@ def pallas_layer():
     jx.set_xattn_impl("auto")
 
 
-def _inputs(seed):
+def _inputs(seed, D=D, HID=HID):
     rng = np.random.default_rng(seed)
     f = lambda *s, scale=1.0, off=0.0: (rng.normal(size=s) * scale + off).astype(np.float32)
     args = [f(B, N, D), f(D, scale=0.2, off=1.0), f(D, scale=0.1),
@@ -52,7 +54,7 @@ def _inputs(seed):
     return args, f(B, N, D)
 
 
-def _perm():
+def _perm(D=D):
     """The decoder's t-major -> c-major fold, P[t*C + c, c*T + t] = 1."""
     T, C = 4, D // 4
     t_idx, c_idx = np.divmod(np.arange(D), C)
@@ -61,10 +63,10 @@ def _perm():
     return p
 
 
-@pytest.mark.parametrize("use_perm", [False, True], ids=["no_perm", "perm"])
-def test_cross_layer_head1_gradients_match_pallas(pallas_layer, use_perm):
-    args, gy = _inputs(1)
-    perm = _perm() if use_perm else None
+def _check_gradients_against_pallas(use_perm, D, HID):
+    assert px.xlayer_supported(N, D, H_, M_, HID)
+    args, gy = _inputs(1, D, HID)
+    perm = _perm(D) if use_perm else None
     scale = D ** -0.5
     jperm = None if perm is None else jnp.asarray(perm)
     _, vjp = jax.vjp(lambda *a: jx.cross_layer_head1_auto(*a, scale=scale, perm=jperm),
@@ -79,3 +81,14 @@ def test_cross_layer_head1_gradients_match_pallas(pallas_layer, use_perm):
         assert np.abs(w).max() > 0, name
         np.testing.assert_allclose(g.numpy(), w, rtol=2e-5, atol=2e-5 * np.abs(w).max(),
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("use_perm", [False, True], ids=["no_perm", "perm"])
+def test_cross_layer_head1_gradients_match_pallas(pallas_layer, use_perm):
+    _check_gradients_against_pallas(use_perm, D, HID)
+
+
+@pytest.mark.parametrize("use_perm", [False, True], ids=["no_perm", "perm"])
+def test_cross_layer_head1_gradients_match_pallas_d64(pallas_layer, use_perm):
+    """SMOW_Net_LW's decoder layer, D = 64, hidden 128."""
+    _check_gradients_against_pallas(use_perm, 64, 128)
