@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Drive the PyTorch/CUDA port of SMOW_Net and SMOW_Net_LW on one NVIDIA GPU
-and check it.
+"""Drive the PyTorch/CUDA port of SMOW_Net, SMOW_Net_LW and ChangeMamba on
+one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
 
@@ -47,7 +47,29 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      D = 64 once per batch), the fp32 model, the train step (A-fwd, B, C,
      A-bwd, F and F-bwd at D = 64 once per step, D and E never) and its
      fp32 gradients
-  13. the kernels' JSON line, the card's line, then the result line last
+  13. kernel I-fwd (`selective_scan_fwd`) vs `cross_selective_scan_plain`,
+     fp32 and bf16, at (B, K, L, Dk) = (32, 4, 4096, 192), (32, 4, 256, 768),
+     (16, 4, 8192, 256) and (2, 4, 1000, 200) (Dk not a multiple of the
+     16-channel blocks, L not of the 16-step chunks); then its time summed
+     over the 27 calls of one ChangeMamba forward at 16 x 256^2, bf16
+  14. kernel I-ckpt's chunk-start states vs a plain step-by-step loop, and
+     I-ckpt + I-bwd (with the epilogue) vs torch.autograd.grad of the plain
+     version: all seven input gradients at (32, 4, 1024, 384) and
+     (16, 4, 8192, 256), fp32; then I-ckpt's and I-bwd's times summed over
+     the 27 calls of one train step, bf16
+  15-18. phases 5-8 for get_model("change_mamba") (16 x 256^2, batch 16;
+     numpy-seeded weights with A_logs, Ds and dt_projs_bias perturbed around
+     the reference's initialisation): the eval step (I-fwd 27 times per
+     batch), the fp32 model, the train step (I-fwd, I-ckpt and I-bwd 27
+     times per step, no other kernel) and its fp32 gradients, every pass
+     drawing the same DropPath masks (the generator reseeded before each).
+     The gradients are held at 1e-3 against a reference that runs I-fwd
+     forward and the plain version's backward (its forward is bitwise the
+     kernel path's: the plain scan's ulp-level differences move a decoder
+     ReLU across its kink and whole leaves by ~1e-2), and against the
+     strict plain path: its loss to 1e-5, its worst leaf to 4x the spread
+     that a +-1e-6 nudge of the plain scan's output causes
+  19. the kernels' JSON line, the card's line, then the result line last
 
 Bounds: fp32 kernels against fp32 plain versions differ only in summation
 order (atomics in D, E, A-bwd and B, a different reduction order in A-fwd,
@@ -67,7 +89,20 @@ layer's kernels (0.5-7 ms) are timed with CUDA events over 20 calls.
 Each kernel's `bound_ms` is the least time the card could take for its
 work at the timed shape (bf16): the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its FLOPs over 989
-TFLOP/s (the H100 SXM data sheet, bf16 dense).
+TFLOP/s (the H100 SXM data sheet, bf16 dense). Kernel I's arithmetic is
+fp32 outside the tensor cores, and one exp per state update: its bound is
+the largest of the bytes term, its FLOPs over 67 TFLOP/s (fp32, the data
+sheet) and its exps (and the softplus's exp and log) over the
+multi-function units' rate, 16 per clock per SM x the SMs x the card's
+maximum SM clock (nvidia-smi clocks.max.sm), printed by the run.
+
+I-fwd, I-ckpt and I-bwd are timed at every shape ChangeMamba gives them
+(CUDA events over 5 calls), and their rows carry the sums over one
+forward's 27 calls (one train step's for I-ckpt and I-bwd), with the bound
+of the same work. Their plain times: the plain scan (no grad) for I-fwd and
+for I-ckpt (it computes the states I-ckpt keeps); for I-bwd the plain
+backward (autograd through the checkpointed plain scan, which recomputes
+each chunk), timed as forward + backward less the forward with its graph.
 
 """
 
@@ -138,19 +173,30 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
-def kernel_only_ms(fn, kernel: str, iters: int = 20) -> float:
+def kernel_only_ms(fn, kernel: str, iters: int = 20, sessions: int = 4) -> float:
     """The profiler's device time per call of the CUDA kernels whose name
     contains `kernel` (the kernel alone, without its wrapper's memset and
-    cast), over `iters` calls of `fn`."""
+    cast), over `iters` calls of `fn`.
+
+    A profiler session on the H100 has come back once without the records of
+    a 20-call run of an 11 us kernel (C, phase 3b), although the kernel ran
+    and its result was held against the plain version. Such a session is
+    logged and the run profiled again, up to `sessions` times; a kernel that
+    no session sees fails the script."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in device_events(prof.key_averages()) if kernel in e.key]
-    require(events, f"the profiler saw no kernel named like {kernel}")
-    return sum(e.self_device_time_total for e in events) / 1e3 / iters
+    for session in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in device_events(prof.key_averages()) if kernel in e.key]
+        if events:
+            return sum(e.self_device_time_total for e in events) / 1e3 / iters
+        seen = sorted({e.key[:60] for e in device_events(prof.key_averages())})
+        log(f"  profiler session {session} of {sessions} saw no kernel named like "
+            f"{kernel} (its device events: {seen or 'none'})")
+    raise RuntimeError(f"the profiler saw no kernel named like {kernel} in {sessions} sessions")
 
 
 def check(label: str, got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float) -> float:
@@ -192,22 +238,67 @@ def device_events(averages):
 def plain_ops():
     """Route the model's kernel ops through their plain versions (for timing
     and the fp32 comparisons only; the model never does this): the token
-    chains' five ops and the decoder layer, whose plain version then runs
-    under torch autograd."""
-    from smow_net_tpu_torch.ops import warp, xattn
+    chains' five ops, the decoder layer and the selective scan, whose plain
+    versions then run under torch autograd."""
+    from smow_net_tpu_torch.ops import scan, warp, xattn
 
     names = ("token_scatter", "grid_sample_t_vjp", "grid_sample_bwd", "grid_sample",
              "grid_sample_transpose")
-    saved = [getattr(warp, n) for n in names], xattn.cross_layer_head1
+    saved = ([getattr(warp, n) for n in names], xattn.cross_layer_head1,
+             scan.cross_selective_scan)
     for n in names:
         setattr(warp, n, getattr(warp, n + "_plain"))
     xattn.cross_layer_head1 = xattn.cross_layer_head1_plain
+    scan.cross_selective_scan = scan.cross_selective_scan_plain
     try:
         yield
     finally:
         for n, f in zip(names, saved[0]):
             setattr(warp, n, f)
         xattn.cross_layer_head1 = saved[1]
+        scan.cross_selective_scan = saved[2]
+
+
+class _KernelValuePlainGrad(torch.autograd.Function):
+    """The selective scan with kernel I-fwd's output and the plain version's
+    gradient (torch autograd through cross_selective_scan_plain at the same
+    inputs): the reference of phase 18, whose forward is then bitwise the
+    kernel path's, so no ReLU of the decoder sits on the other side of its
+    kink."""
+
+    @staticmethod
+    def forward(ctx, xs, dts, A, Bs, Cs, Ds, dt_bias):
+        from smow_net_tpu_torch.ops import scan
+
+        ctx.save_for_backward(xs, dts, A, Bs, Cs, Ds, dt_bias)
+        return scan._scan_fwd(scan._Args(xs, dts, A, Bs, Cs, Ds, dt_bias))
+
+    @staticmethod
+    def backward(ctx, gy):
+        from smow_net_tpu_torch.ops import scan
+
+        args = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            return torch.autograd.grad(scan.cross_selective_scan_plain(*args), args, gy)
+
+
+@contextlib.contextmanager
+def swap_scan(fn):
+    """Route the model's selective scan through `fn(xs, dts, A, Bs, Cs, Ds,
+    dt_bias)` (the model always takes the softplus)."""
+    from smow_net_tpu_torch.ops import scan
+
+    saved = scan.cross_selective_scan
+
+    def call(xs, dts, A, Bs, Cs, Ds=None, dt_bias=None, delta_softplus=True):
+        require(delta_softplus, "the model's scans take the softplus")
+        return fn(xs, dts, A, Bs, Cs, Ds, dt_bias)
+
+    scan.cross_selective_scan = call
+    try:
+        yield
+    finally:
+        scan.cross_selective_scan = saved
 
 
 def log_times(results: dict, label: str) -> None:
@@ -586,10 +677,184 @@ def phase_kernel_f_bwd(dev, D: int) -> dict:
     return result
 
 
+# (B, K, L, Dk) of every selective-scan call in one ChangeMamba forward at
+# 16 x 256^2 (the 2B-batched encoder's four stages, then the decoder's
+# STBlocks at Dk = 256), with its number of calls
+SCAN_CALLS = (((32, 4, 4096, 192), 2), ((32, 4, 1024, 384), 2), ((32, 4, 256, 768), 9),
+              ((32, 4, 64, 1536), 2), ((16, 4, 64, 256), 1), ((16, 4, 128, 256), 2),
+              ((16, 4, 256, 256), 1), ((16, 4, 512, 256), 2), ((16, 4, 1024, 256), 1),
+              ((16, 4, 2048, 256), 2), ((16, 4, 4096, 256), 1), ((16, 4, 8192, 256), 2))
+FP32_FLOP_PER_S = 67e12
+
+
+def mufu_per_s() -> float:
+    """The multi-function units' exp rate: 16 per clock per SM x SMs x the
+    maximum SM clock that nvidia-smi reports."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout.split()[0]
+    return 16 * torch.cuda.get_device_properties(0).multi_processor_count * float(mhz) * 1e6
+
+
+def scan_bound(n_bytes: float, flops: float, exps: float, rate: float) -> dict:
+    """bound_ms and bound_by for fp32 FMA work with exps on the MUFU."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(flops / FP32_FLOP_PER_S, exps / rate) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _scan_args(dev, shape, seed, dtype=torch.float32):
+    """Kernel I's inputs at `shape` = (B, K, L, Dk), numpy-seeded in
+    SS2D's ranges: dt = softplus(dts + bias) mostly in [1e-3, 0.1] with a
+    tail above, A = -exp(log(1..16) + noise)."""
+    B, K, L, Dk = shape
+    rng = np.random.default_rng(seed)
+
+    def f(*s, scale=1.0, off=0.0):
+        return torch.from_numpy((rng.normal(size=s) * scale + off).astype(np.float32)).to(dev)
+
+    A = -torch.exp(torch.log(torch.arange(1, 17, device=dev, dtype=torch.float32))
+                   + f(K * Dk, 16, scale=0.1))
+    bias = torch.from_numpy(rng.uniform(np.log(1e-3), np.log(0.1), K * Dk).astype(np.float32))
+    return [f(B, K, L, Dk).to(dtype), f(B, K, L, Dk).to(dtype), A, f(B, K, L, 16).to(dtype),
+            f(B, K, L, 16).to(dtype), f(K * Dk, scale=0.1, off=1.0), bias.to(dev)]
+
+
+def phase_scan_fwd(dev, rate: float) -> dict:
+    from smow_net_tpu_torch.ops import scan
+
+    log("phase 13: kernel I-fwd selective_scan_fwd vs cross_selective_scan_plain (fp32: 1e-5 "
+        "of the largest output; bf16: one bf16 rounding of the plain version in fp32)")
+    result = {}
+    for shape in ((32, 4, 4096, 192), (32, 4, 256, 768), (16, 4, 8192, 256), (2, 4, 1000, 200)):
+        args32 = _scan_args(dev, shape, 40)
+        for dt in (torch.float32, torch.bfloat16):
+            args = [a.to(dt) if i in (0, 1, 3, 4) else a for i, a in enumerate(args32)]
+            with torch.no_grad():
+                y = scan.cross_selective_scan(*args)
+                want = scan.cross_selective_scan_plain(*[a.float() for a in args])
+            require(y.dtype == dt, "I-fwd returns the input dtype")
+            err = check(f"{shape} {str(dt)[6:]}", y, want, 0.0,
+                        1e-5 if dt == torch.float32 else BF16_REL)
+            if shape == (32, 4, 4096, 192) and dt == torch.bfloat16:
+                result["max_abs_err"] = err
+            del y, want
+    # the 27 calls of one bf16 eval forward
+    ms = plain_ms = n_bytes = flops = exps = 0.0
+    for shape, count in SCAN_CALLS:
+        args = _scan_args(dev, shape, 41, torch.bfloat16)
+        with torch.no_grad():
+            t = cuda_ms(lambda: scan.cross_selective_scan(*args), iters=5, warmup=1)
+            tp = cuda_ms(lambda: scan.cross_selective_scan_plain(*args), iters=2, warmup=1)
+        B, K, L, Dk = shape
+        elems = B * K * L * Dk
+        log(f"  {shape} x{count}: kernel {t:.4f} ms, plain {tp:.4f} ms")
+        ms, plain_ms = ms + count * t, plain_ms + count * tp
+        n_bytes += count * (nbytes(*args) + 2 * elems)          # + y in bf16
+        flops += count * 5 * 16 * elems
+        exps += count * 18 * elems                              # 16 states + softplus
+    result.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                  **scan_bound(n_bytes, flops, exps, rate))
+    log(f"  one forward's 27 calls, bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{result['bound_ms']:.4f} ms ({result['bound_by']}; {exps:.3e} exps, "
+        f"{n_bytes:.3e} bytes)")
+    return result
+
+
+def _plain_chunk_states(args, chunk):
+    """The scan's state before every `chunk` steps, (B, K, L/chunk, 16,
+    Dk), by a plain fp32 loop over L."""
+    from smow_net_tpu_torch.ops import scan
+
+    xs, dts, A, Bs, Cs, Ds, bias = args
+    B, K, L, Dk = xs.shape
+    dt = scan.softplus(dts.float() + bias.reshape(1, K, 1, Dk))
+    A3 = A.reshape(K, Dk, 16)
+    h = torch.zeros(B, K, Dk, 16, device=xs.device)
+    out = []
+    for l in range(L):
+        if l % chunk == 0:
+            out.append(h)
+        h = (torch.exp(dt[:, :, l, :, None] * A3) * h
+             + (dt[:, :, l] * xs[:, :, l].float())[..., None] * Bs[:, :, l, None, :].float())
+    return torch.stack(out, dim=2).transpose(-1, -2)
+
+
+def phase_scan_bwd(dev, rate: float) -> dict:
+    from smow_net_tpu_torch.ops import scan
+
+    log("phase 14: kernels I-ckpt selective_scan_ckpt and I-bwd selective_scan_bwd vs the "
+        "plain version (fp32: states 1e-5 of the largest, gradients 1e-4 of each largest)")
+    names = ("xs", "dts", "A", "Bs", "Cs", "Ds", "dt_bias")
+    results = {"selective_scan_ckpt": {}, "selective_scan_bwd": {}}
+    args = _scan_args(dev, (32, 4, 1024, 384), 42)
+    hck = scan._scan_ckpt(scan._Args(*args))
+    err_ck = check("I-ckpt (32, 4, 1024, 384) chunk-start states",
+                   hck.reshape(32, 4, 64, 16, 384), _plain_chunk_states(args, 16), 0.0, 1e-5)
+    results["selective_scan_ckpt"]["max_abs_err"] = err_ck
+    for shape in ((32, 4, 1024, 384), (16, 4, 8192, 256)):
+        args = [a.requires_grad_() for a in _scan_args(dev, shape, 43)]
+        gy = torch.from_numpy(
+            np.random.default_rng(44).normal(size=shape).astype(np.float32)).to(dev)
+        got = torch.autograd.grad(scan.cross_selective_scan(*args), args, gy)
+        want = torch.autograd.grad(scan.cross_selective_scan_plain(*args), args, gy)
+        err = max(check(f"I-bwd {shape} d{n}", g, w, 0.0, 1e-4)
+                  for n, g, w in zip(names, got, want))
+        if shape == (32, 4, 1024, 384):
+            results["selective_scan_bwd"]["max_abs_err"] = err
+        del got, want
+    # the 27 calls of one bf16 train step's backward
+    ck = results["selective_scan_ckpt"]
+    bw = results["selective_scan_bwd"]
+    tot = dict(ck=0.0, bw=0.0, ck_plain=0.0, bw_plain=0.0, ck_bytes=0.0, bw_bytes=0.0,
+               elems=0.0)
+    for shape, count in SCAN_CALLS:
+        args = _scan_args(dev, shape, 45, torch.bfloat16)
+        gy = torch.randn(shape, device=dev, dtype=torch.bfloat16)
+        a = scan._Args(*args)
+        hck = scan._scan_ckpt(a)
+        t_ck = cuda_ms(lambda: scan._scan_ckpt(a), iters=5, warmup=1)
+        t_bw = cuda_ms(lambda: scan._scan_bwd(a, gy, hck), iters=5, warmup=1)
+        with torch.no_grad():
+            t_fwd = cuda_ms(lambda: scan.cross_selective_scan_plain(*args), iters=2, warmup=1)
+        ref = [x.detach().requires_grad_() for x in args]
+        t_graph = cuda_ms(lambda: scan.cross_selective_scan_plain(*ref), iters=2, warmup=1)
+        t_both = cuda_ms(lambda: torch.autograd.grad(scan.cross_selective_scan_plain(*ref), ref,
+                                                     gy), iters=2, warmup=1)
+        grads = scan._scan_bwd(a, gy, hck)
+        B, K, L, Dk = shape
+        log(f"  {shape} x{count}: I-ckpt {t_ck:.4f} ms, I-bwd {t_bw:.4f} ms; plain forward "
+            f"{t_fwd:.4f}, plain backward {t_both - t_graph:.4f} ms")
+        tot["ck"] += count * t_ck
+        tot["bw"] += count * t_bw
+        tot["ck_plain"] += count * t_fwd
+        tot["bw_plain"] += count * (t_both - t_graph)
+        tot["ck_bytes"] += count * nbytes(a.u, a.dt, a.Bm, hck)
+        tot["bw_bytes"] += count * nbytes(a.u, a.dt, a.Bm, a.Cm, gy, hck, *grads)
+        tot["elems"] += count * B * K * L * Dk
+        del hck, grads
+    e = tot["elems"]
+    ck.update(ms=tot["ck"], plain_ms=tot["ck_plain"], library_ms=None,
+              **scan_bound(tot["ck_bytes"], 3 * 16 * e, 18 * e, rate))
+    # I-bwd's function needs each state's exp(dt A) once (the kernel takes it
+    # twice, in the recompute and in the reverse sweep) and the softplus's
+    # exp and log: 18 per element, as I-fwd and I-ckpt
+    bw.update(ms=tot["bw"], plain_ms=tot["bw_plain"], library_ms=None,
+              **scan_bound(tot["bw_bytes"], 20 * 16 * e, 18 * e, rate))
+    for label, r in (("I-ckpt", ck), ("I-bwd", bw)):
+        log(f"  one train step's 27 calls, bf16: {label} {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return results
+
+
 def seeded_state_dict(model: torch.nn.Module, seed: int) -> dict:
     """Numpy-seeded values for every parameter and buffer: fan-in scaled
     weights (the zero/identity-initialised temporal mixers included, so every
-    branch carries signal) and BN running statistics away from identity."""
+    branch carries signal), BN running statistics away from identity, and
+    the selective scan's A_logs, Ds and dt_projs_bias perturbed around the
+    reference's initialisation (log(1..16), 1, the inverse softplus of dt in
+    [1e-3, 0.1])."""
     rng = np.random.default_rng(seed)
     sd = {}
     for key, v in model.state_dict().items():
@@ -606,6 +871,14 @@ def seeded_state_dict(model: torch.nn.Module, seed: int) -> dict:
             val = n / np.sqrt(shape[1] * int(np.prod(shape[2:], dtype=np.int64)))
         elif leaf == "pos_embedding":
             val = n
+        elif leaf == "A_logs":
+            val = np.log(np.arange(1, shape[-1] + 1)) + 0.1 * n
+        elif leaf == "Ds":
+            val = 1.0 + 0.1 * n
+        elif leaf == "dt_projs_bias":
+            val = rng.uniform(np.log(1e-3), np.log(0.1), size=shape) + 0.1 * n
+        elif leaf in ("x_proj_weight", "dt_projs_weight"):     # (K, out, fan-in)
+            val = n / np.sqrt(shape[-1])
         else:                                            # biases, running means
             val = 0.1 * n
         sd[key] = torch.from_numpy(val.astype(np.float32))
@@ -624,21 +897,34 @@ def make_batches(dev, count, batch, size, seed):
     return out
 
 
-EVAL_KERNELS = ("token_scatter_fwd", "xattn_layer_fwd")
-# the train step's kernels per model, and the kernels it must not launch
+SCAN_KERNELS = ("selective_scan_fwd", "selective_scan_ckpt", "selective_scan_bwd")
+# each model's eval-step kernels and their launches per batch
+EVAL_KERNELS = {
+    "smow_net": {"token_scatter_fwd": 1, "xattn_layer_fwd": 1},
+    "smow_net_lw": {"token_scatter_fwd": 1, "xattn_layer_fwd": 1},
+    "change_mamba": {"selective_scan_fwd": 27},
+}
+# the train step's kernels per model and their launches per step, and the
+# kernels it must not launch
 TRAIN_KERNELS = {
-    "smow_net": ("token_scatter_fwd_eaw", "grid_sample_t_vjp", "grid_sample_bwd",
-                 "xattn_layer_fwd", "xattn_layer_bwd"),
-    "smow_net_lw": ("grid_sample_fwd", "grid_sample_transpose", "grid_sample_t_vjp",
-                    "grid_sample_bwd", "xattn_layer_fwd", "xattn_layer_bwd"),
+    "smow_net": dict.fromkeys(("token_scatter_fwd_eaw", "grid_sample_t_vjp", "grid_sample_bwd",
+                               "xattn_layer_fwd", "xattn_layer_bwd"), 1),
+    "smow_net_lw": dict.fromkeys(("grid_sample_fwd", "grid_sample_transpose",
+                                  "grid_sample_t_vjp", "grid_sample_bwd", "xattn_layer_fwd",
+                                  "xattn_layer_bwd"), 1),
+    "change_mamba": dict.fromkeys(SCAN_KERNELS, 27),
 }
 TRAIN_ABSENT = {
-    "smow_net": ("token_scatter_fwd", "grid_sample_fwd", "grid_sample_transpose"),
-    "smow_net_lw": ("token_scatter_fwd", "token_scatter_fwd_eaw"),
+    "smow_net": ("token_scatter_fwd", "grid_sample_fwd", "grid_sample_transpose")
+    + SCAN_KERNELS,
+    "smow_net_lw": ("token_scatter_fwd", "token_scatter_fwd_eaw") + SCAN_KERNELS,
+    "change_mamba": ("token_scatter_fwd", "token_scatter_fwd_eaw", "grid_sample_fwd",
+                     "grid_sample_transpose", "grid_sample_t_vjp", "grid_sample_bwd",
+                     "xattn_layer_fwd", "xattn_layer_bwd"),
 }
 
 
-def phase_main_path(dev, name: str, phase: int, rounds: int) -> dict:
+def phase_main_path(dev, name: str, phase: int, rounds: int, per_round: int = 5) -> dict:
     from smow_net_tpu_torch.models import get_model
     from smow_net_tpu_torch.ops import _kernels
     from smow_net_tpu_torch.train.metrics import cm2score
@@ -658,7 +944,7 @@ def phase_main_path(dev, name: str, phase: int, rounds: int) -> dict:
     for i, batch in enumerate(batches):
         cm, loss, pred = step(batch)
         counts = dict(_kernels.launches)
-        require(counts == {n: i + 1 for n in EVAL_KERNELS},
+        require(counts == {n: k * (i + 1) for n, k in EVAL_KERNELS[name].items()},
                 f"launch counts {counts} after batch {i + 1}")
         require(pred.shape == (16, 256, 256) and bool(torch.isfinite(pred).all()),
                 "predictions must be finite, (16, 256, 256)")
@@ -669,12 +955,13 @@ def phase_main_path(dev, name: str, phase: int, rounds: int) -> dict:
         cm_total += cm
         log(f"  batch {i}: loss {float(loss):.6f} cm {cm.tolist()} "
             f"pred mean {float(pred.mean()):.4f} std {float(pred.std()):.4f}")
-    launches = {n: _kernels.launches[n] for n in EVAL_KERNELS}
+    launches = {n: _kernels.launches[n] for n in EVAL_KERNELS[name]}
     log(f"  launches {launches}; cm2score {json.dumps(cm2score(cm_total))}")
 
-    # timing: rounds of 5 batches (one untimed batch first), alternating the
-    # kernel path and the plain path and flipping their order every round
-    def round_ms(n=5):
+    # timing: rounds of `per_round` batches (one untimed batch first),
+    # alternating the kernel path and the plain path and flipping their
+    # order every round
+    def round_ms(n=per_round):
         step(batches[0])
         torch.cuda.synchronize()
         out = []
@@ -687,7 +974,7 @@ def phase_main_path(dev, name: str, phase: int, rounds: int) -> dict:
             out.append(start.elapsed_time(end))
         return out
 
-    medians = alternate_rounds(round_ms, rounds, "batch")
+    medians = alternate_rounds(round_ms, rounds, "batch", per_round)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for batch in batches:
@@ -709,7 +996,7 @@ def phase_main_path(dev, name: str, phase: int, rounds: int) -> dict:
     return launches
 
 
-def alternate_rounds(round_ms, rounds: int, unit: str) -> dict:
+def alternate_rounds(round_ms, rounds: int, unit: str, per_round: int) -> dict:
     """Rounds of `round_ms()` alternating the kernel path and the plain path
     (their order flipped every round; the plain path must launch no
     kernel); logs and returns each path's median."""
@@ -730,13 +1017,14 @@ def alternate_rounds(round_ms, rounds: int, unit: str) -> dict:
     for path, rows in timing.items():
         q1, medians[path], q3 = np.percentile(np.concatenate(rows), [25, 50, 75])
         log(f"  {path} path ms/{unit}: median {medians[path]:.3f} (q1 {q1:.3f}, q3 {q3:.3f}, "
-            f"{len(rows)} rounds x 5)")
+            f"{len(rows)} rounds x {per_round})")
     log(f"  kernel path faster in {wins} of {rounds} rounds")
     return medians
 
 
 def phase_fp32_model(dev, name: str, phase: int) -> None:
     from smow_net_tpu_torch.models import get_model
+    from smow_net_tpu_torch.train.trainer import select_pred
 
     log(f"phase {phase}: whole {name} fp32 (TF32 off), kernel path vs plain path, batch 2, "
         "256^2")
@@ -750,7 +1038,8 @@ def phase_fp32_model(dev, name: str, phase: int) -> None:
         got = model(x1, x2)
         with plain_ops():
             want = model(x1, x2)
-    require(got.shape == (2, 1, 256, 256), f"output shape {tuple(got.shape)}")
+    require(got.shape[0] == 2 and got.shape[2:] == (256, 256), f"output {tuple(got.shape)}")
+    got, want = select_pred(got), select_pred(want)
     log(f"  probabilities mean {float(want.mean()):.4f} std {float(want.std()):.4f}")
     # fp32 everywhere; the two paths differ only in the kernels' summation order
     check(f"{name} fp32 probabilities", got, want, 1e-4, 0.0)
@@ -769,7 +1058,7 @@ def _train_setup(name, compute_dtype, steps):
     return model, create_train_state(model, opt), make_train_step(model, opt, compute_dtype)
 
 
-def phase_train(dev, name: str, phase: int, rounds: int) -> dict:
+def phase_train(dev, name: str, phase: int, rounds: int, per_round: int = 5) -> dict:
     from smow_net_tpu_torch.ops import _kernels
 
     log(f"phase {phase}: main path, {name} train step, bf16 compute over fp32 masters, "
@@ -786,11 +1075,11 @@ def phase_train(dev, name: str, phase: int, rounds: int) -> dict:
     for i in range(steps):
         losses.append(float(step(state, batch)))
         counts = dict(_kernels.launches)
-        require(counts == {n: i + 1 for n in TRAIN_KERNELS[name]},
-                f"launch counts {counts} after train step {i + 1}: each of "
-                f"{TRAIN_KERNELS[name]} once per step, and never {TRAIN_ABSENT[name]}")
+        require(counts == {n: k * (i + 1) for n, k in TRAIN_KERNELS[name].items()},
+                f"launch counts {counts} after train step {i + 1}: per step "
+                f"{TRAIN_KERNELS[name]}, and never {TRAIN_ABSENT[name]}")
         log(f"  step {i}: loss {losses[-1]:.6f}")
-    launches = {n: _kernels.launches[n] for n in TRAIN_KERNELS[name] + TRAIN_ABSENT[name]}
+    launches = {n: _kernels.launches[n] for n in tuple(TRAIN_KERNELS[name]) + TRAIN_ABSENT[name]}
     log(f"  launches {launches}; cm {state.cm.tolist()}")
     require(all(np.isfinite(losses)) and losses[-1] < losses[0],
             f"the loss must be finite and fall on a repeated batch: {losses}")
@@ -815,7 +1104,7 @@ def phase_train(dev, name: str, phase: int, rounds: int) -> dict:
     require(float(state.loss_count) == steps and float(state.cm.sum()) == steps * 16 * 256 ** 2,
             "the step must accumulate its metrics on the device")
 
-    def round_ms(n=5):
+    def round_ms(n=per_round):
         step(state, batch)
         torch.cuda.synchronize()
         out = []
@@ -829,7 +1118,7 @@ def phase_train(dev, name: str, phase: int, rounds: int) -> dict:
         return out
 
     torch.cuda.reset_peak_memory_stats()
-    medians = alternate_rounds(round_ms, rounds, "step")
+    medians = alternate_rounds(round_ms, rounds, "step", per_round)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -851,20 +1140,41 @@ def phase_train(dev, name: str, phase: int, rounds: int) -> dict:
     return launches
 
 
+def leaf_errors(want: dict, got: dict) -> list:
+    """(max |got - want| / the leaf's largest |want|, name), worst first;
+    leaves whose gradient is zero in exact arithmetic (a conv bias right
+    before a train-mode BatchNorm) are held to the model's largest one."""
+    largest = max(float(w.abs().max()) for w in want.values())
+    rows = []
+    for n, w in want.items():
+        scale = float(w.abs().max())
+        ref = scale if scale >= 1e-6 * largest else largest
+        rows.append((float((got[n] - w).abs().max()) / ref, n))
+    return sorted(rows, reverse=True)
+
+
 def phase_fp32_train_grads(dev, name: str, phase: int) -> None:
     from smow_net_tpu_torch.models import get_model
+    from smow_net_tpu_torch.nn.ssm import DropPath
     from smow_net_tpu_torch.train.loss import bce_dice_loss
     from smow_net_tpu_torch.train.trainer import select_pred
 
     log(f"phase {phase}: whole-model {name} fp32 train gradients (TF32 off, deterministic "
-        "cuDNN), kernel path vs plain path, batch 2, 256^2")
+        "cuDNN), kernel path vs plain path (ChangeMamba: the plain scan's backward on I-fwd's "
+        "values), batch 2, 256^2")
     model = get_model(name)
     model.load_state_dict(seeded_state_dict(model, 0))
     model.train()
     batch = make_batches(dev, 1, 2, 256, seed=12)[0]
     x1, x2 = (batch[k].permute(0, 3, 1, 2) for k in ("A", "B"))
+    # the same DropPath masks on both paths: one generator, reseeded before each pass
+    generator = torch.Generator(device=dev)
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.generator = generator
 
     def grads():
+        generator.manual_seed(0)
         model.zero_grad(set_to_none=True)
         loss = bce_dice_loss(select_pred(model(x1, x2)).float(), batch["mask"])
         loss.backward()
@@ -876,34 +1186,60 @@ def phase_fp32_train_grads(dev, name: str, phase: int) -> None:
     # ConvTranspose3d's forward is cuDNN's backward-data, whose default
     # algorithms add with atomics: run to run, an activation next to a
     # LeakyReLU kink could take the other branch. Deterministic algorithms
-    # keep the two paths' forward identical outside the kernels' ops.
+    # keep the two paths' forward identical outside the kernels' ops. The
+    # selective scan's own forward differs from its plain version by ulps
+    # (exp2 against exp, other sums), enough to move a decoder ReLU across
+    # its kink: ChangeMamba's gradients are held at 1e-3 against I-fwd's
+    # values with the plain backward, and against the strict plain path
+    # (I-fwd's train-mode output then feeds the comparison) on its loss and
+    # on a bound set by this run's kink sensitivity: the spread that a
+    # +-1e-6 relative nudge of the plain scan's output causes.
+    scan_model = any(isinstance(m, DropPath) for m in model.modules())
+    reference = swap_scan(_KernelValuePlainGrad.apply) if scan_model else plain_ops()
     torch.backends.cudnn.deterministic = True
     try:
         loss_k, got = grads()
-        with plain_ops():
+        with reference:
             loss_p, want = grads()
             _, again = grads()
+        if scan_model:
+            from smow_net_tpu_torch.ops import scan
+
+            with plain_ops():
+                loss_s, strict = grads()
+            kink = []
+            for eps in (1e-6, -1e-6):
+                with swap_scan(lambda *a, eps=eps: scan.cross_selective_scan_plain(*a) * (1 + eps)):
+                    kink.append((leaf_errors(strict, grads()[1])[0], eps))
     finally:
         torch.backends.cudnn.deterministic = False
-    log(f"  loss kernel path {loss_k:.7f}, plain path {loss_p:.7f}")
+    log(f"  loss kernel path {loss_k:.7f}, reference path {loss_p:.7f}")
+    if scan_model:
+        for (err, n), eps in kink:
+            log(f"  kink sensitivity: strict plain path vs plain with the scan's output x "
+                f"(1 {eps:+.0e}): worst leaf {n} {err:.3e} of its largest element")
+        spread = max(err for (err, _), _ in kink)
+        err, n = leaf_errors(strict, got)[0]
+        bound = max(1e-3, 4 * spread)
+        log(f"  kernel path vs strict plain path: loss {loss_k:.7f} vs {loss_s:.7f}, worst leaf "
+            f"{n} {err:.3e} of its largest element (bound {bound:.3e}: 4x the nudges' spread)")
+        require(abs(loss_k - loss_s) <= 1e-5 * abs(loss_s),
+                "the kernel path's loss differs from the strict plain path's")
+        require(err <= bound, f"{n}: kernel path vs strict plain path {err:.3e} of its largest "
+                f"element, over 4x the kink sensitivity")
     require(got.keys() == want.keys() and len(want) >= len(list(model.parameters())) - 3,
             "the two paths must give gradients to the same parameters")
     require(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), "the two paths' losses differ")
-    largest = max(float(w.abs().max()) for w in want.values())
-    rows = []
-    for n, w in want.items():
-        require(bool(torch.isfinite(got[n]).all()), f"{n}: non-finite gradient")
-        # leaves whose gradient is zero in exact arithmetic (a conv bias right
-        # before a train-mode BatchNorm) are held to the model's largest one
-        scale = float(w.abs().max())
-        ref = scale if scale >= 1e-6 * largest else largest
-        rows.append((float((got[n] - w).abs().max()) / ref,
-                     float((again[n] - w).abs().max()) / ref, n))
+    for n, g in got.items():
+        require(bool(torch.isfinite(g).all()), f"{n}: non-finite gradient")
+    noise = dict((n, e) for e, n in leaf_errors(want, again))
+    rows = [(err, noise[n], n) for err, n in leaf_errors(want, got)]
     rows.sort(reverse=True)
-    for err, noise, n in rows[:5]:
-        log(f"  {n}: kernel vs plain {err:.3e}, plain vs plain {noise:.3e} of its largest element")
+    for err, spread, n in rows[:5]:
+        log(f"  {n}: kernel vs reference {err:.3e}, reference vs reference {spread:.3e} of its "
+            "largest element")
     worst_noise = max(r[1] for r in rows)
-    log(f"  worst plain-vs-plain spread over all leaves: {worst_noise:.3e}")
+    log(f"  worst reference-vs-reference spread over all leaves: {worst_noise:.3e}")
     require(rows[0][0] <= 1e-3, f"{rows[0][2]}: gradient differs by {rows[0][0]:.3e} of its "
             "largest element (bound 1e-3: fp32 sums in other orders and atomics)")
 
@@ -945,14 +1281,25 @@ def main() -> None:
     phase_fp32_model(dev, "smow_net_lw", 10)
     lw_train_launches = phase_train(dev, "smow_net_lw", 11, rounds=4)
     phase_fp32_train_grads(dev, "smow_net_lw", 12)
+    rate = mufu_per_s()
+    log(f"  exp rate for kernel I's bound: {rate:.4e} /s (16 per clock per SM, "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, clocks.max.sm)")
+    scan_fwd = phase_scan_fwd(dev, rate)
+    scan_bwd = phase_scan_bwd(dev, rate)
+    cm_launches = phase_main_path(dev, "change_mamba", 15, rounds=4, per_round=3)
+    phase_fp32_model(dev, "change_mamba", 16)
+    cm_train_launches = phase_train(dev, "change_mamba", 17, rounds=2, per_round=2)
+    phase_fp32_train_grads(dev, "change_mamba", 18)
 
-    log("phase 13: results (launches: D and F at D = 128 from SMOW_Net's eval path (phase "
+    log("phase 19: results (launches: D and F at D = 128 from SMOW_Net's eval path (phase "
         "5), E, C, A-bwd and F-bwd at D = 128 from its train step (phase 7), A-fwd and B "
         "from SMOW_Net_LW's train step (phase 11), F and F-bwd at D = 64 from SMOW_Net_LW's "
-        "eval path (phase 9) and train step (phase 11); SMOW_Net's train step ran F "
-        f"{train_launches['xattn_layer_fwd']} times, SMOW_Net_LW's ran C "
-        f"{lw_train_launches['grid_sample_t_vjp']} and A-bwd "
-        f"{lw_train_launches['grid_sample_bwd']} times)")
+        "eval path (phase 9) and train step (phase 11), I-fwd from ChangeMamba's eval path "
+        "(phase 15, 3 batches), I-ckpt and I-bwd from its train step (phase 17, 6 steps); "
+        f"SMOW_Net's train step ran F {train_launches['xattn_layer_fwd']} times, "
+        f"SMOW_Net_LW's ran C {lw_train_launches['grid_sample_t_vjp']} and A-bwd "
+        f"{lw_train_launches['grid_sample_bwd']} times, ChangeMamba's I-fwd "
+        f"{cm_train_launches['selective_scan_fwd']} times)")
     csrc, pallas = "smow_net_tpu_torch/csrc/", "smow_net_tpu/ops/pallas/"
 
     def row(name, source, replaces, launch_count, numbers, **extra):
@@ -980,6 +1327,12 @@ def main() -> None:
             lw_launches["xattn_layer_fwd"], f[64]),
         row("xattn_layer_bwd_d64", "xattn_layer_bwd.cu", "xattn.py:633",
             lw_train_launches["xattn_layer_bwd"], fb[64]),
+        row("selective_scan_fwd", "selective_scan.cu", "scan_fused.py:147",
+            cm_launches["selective_scan_fwd"], scan_fwd),
+        row("selective_scan_ckpt", "selective_scan.cu", "scan_fused.py:261",
+            cm_train_launches["selective_scan_ckpt"], scan_bwd["selective_scan_ckpt"]),
+        row("selective_scan_bwd", "selective_scan.cu", "scan_fused.py:291",
+            cm_train_launches["selective_scan_bwd"], scan_bwd["selective_scan_bwd"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi.stdout.strip())

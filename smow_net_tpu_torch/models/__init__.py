@@ -1,8 +1,8 @@
 """Model registry of the port (mirrors smow_net_tpu.models.get_model).
 
-SMOW_Net and SMOW_Net_LW are ported so far; the other names of the JAX
-registry raise NotImplementedError naming the ROADMAP.md item that ports
-them.
+SMOW_Net, SMOW_Net_LW and ChangeMamba are ported so far; the other names
+of the JAX registry raise NotImplementedError naming the ROADMAP.md item
+that ports them.
 """
 
 from __future__ import annotations
@@ -11,15 +11,15 @@ import torch
 
 __all__ = ["get_model", "list_models"]
 
-_MAMBA = ("rs_mamba", "change_mamba", "cd_mamba")
+_MAMBA = {"cd_mamba": "ROADMAP.md queue 1 step 12a (cd_mamba, kernel H)",
+          "rs_mamba": "ROADMAP.md queue 1 step 12b (rs_mamba, cross_scan8)"}
 _ZOO = ("fc_ef", "snunet", "dtcdscn", "ifn", "bit", "pa_former", "afcf3d",
         "seifnet", "tfi_gr", "a2net", "elgcnet", "changeformer", "scratchformer")
-_LATER = {**{n: "ROADMAP.md section 1 step 11 (non-Mamba zoo)" for n in _ZOO},
-          **{n: "ROADMAP.md section 1 step 12 (Mamba family)" for n in _MAMBA}}
+_LATER = {**{n: "ROADMAP.md queue 1 step 11 (non-Mamba zoo)" for n in _ZOO}, **_MAMBA}
 
 
 def list_models():
-    return ["smow_net", "smow_net_lw"]
+    return ["smow_net", "smow_net_lw", "change_mamba"]
 
 
 def get_model(name: str, device="cuda") -> torch.nn.Module:
@@ -38,6 +38,10 @@ def get_model(name: str, device="cuda") -> torch.nn.Module:
         from .smow_net_lw import SMOWNetLW
 
         return SMOWNetLW().to(device)
+    if name == "change_mamba":
+        from .change_mamba import ChangeMamba
+
+        return ChangeMamba().to(device)
     if name in _LATER:
         raise NotImplementedError(f"{name!r} is not ported yet: {_LATER[name]}")
     raise KeyError(f"unknown model {name!r}; available: {list_models()}")

@@ -10,7 +10,8 @@ tests import every module without a CUDA toolkit.
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `call` raises on anything but 0. `launches` counts,
 per kernel, the launches made by the op wrappers (ops/warp.py,
-ops/xattn.py): a run can read it to show it went through the kernels.
+ops/xattn.py, ops/scan.py): a run can read it to show it went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -44,6 +45,9 @@ _SIGNATURES = {
     "grid_sample_bwd": [_P] * 5 + [_I] * 7 + [_P],
     "xattn_layer_fwd": [_P] * 16 + [_I] * 7 + [ctypes.c_float, _P],
     "xattn_layer_bwd": [_P] * 20 + [_I] * 9 + [ctypes.c_float, _P],
+    "selective_scan_fwd": [_P] * 8 + [_I] * 5 + [_P],
+    "selective_scan_ckpt": [_P] * 6 + [_I] * 5 + [_P],
+    "selective_scan_bwd": [_P] * 13 + [_I] * 5 + [_P],
 }
 
 launches: collections.Counter = collections.Counter()

@@ -1,8 +1,8 @@
 """Checkpoints (port of smow_net_tpu/train/checkpoint.py): save and restore
 a resumable train state (model parameters and BN statistics, optimizer
-state and update count, step, accumulated metrics) with `torch.save`. A
-step taken after `restore_checkpoint` equals the one an uninterrupted run
-takes.
+state and update count, step, accumulated metrics, the DropPath generator's
+state) with `torch.save`. A step taken after `restore_checkpoint` equals the
+one an uninterrupted run takes.
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ def save_checkpoint(path: str, state: TrainState, **extra: Any) -> None:
     e.g. the epoch or the best metric) to the file `path`, atomically."""
     payload = {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
                "step": state.step, "cm": state.cm, "loss_sum": state.loss_sum,
-               "loss_count": state.loss_count, "extra": extra}
+               "loss_count": state.loss_count, "generator": state.generator.get_state(),
+               "extra": extra}
     tmp = f"{path}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -38,4 +39,5 @@ def restore_checkpoint(path: str, state: TrainState) -> Dict[str, Any]:
     state.step = int(payload["step"])
     for name in ("cm", "loss_sum", "loss_count"):
         getattr(state, name).copy_(payload[name])
+    state.generator.set_state(payload["generator"].cpu())
     return payload["extra"]

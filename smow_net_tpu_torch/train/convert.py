@@ -1,6 +1,7 @@
 """JAX variables -> the port's state_dict (the inverse of
 smow_net_tpu/train/convert.py `load_smownet_state_dict` and
-`load_smownet_lw_state_dict`).
+`load_smownet_lw_state_dict`, and of smow_net_tpu/train/convert_zoo.py
+`convert_generic` with zoo_specs' "change_mamba" renames).
 
 `variables` is the JAX `{"params", "batch_stats"}` tree as nested dicts of
 numpy arrays. Layout rules, JAX (channels-last) -> torch:
@@ -15,6 +16,7 @@ numpy arrays. Layout rules, JAX (channels-last) -> torch:
 
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -207,12 +209,59 @@ def _smownet_lw(w: _Writer) -> None:
     w.pixel_decoder_head()
 
 
-_MODELS = {"smow_net": _smownet, "smow_net_lw": _smownet_lw}
+# module path (flax names joined by ".") -> torch prefix, applied in order
+# (smow_net_tpu/train/zoo_specs.py "change_mamba")
+_CHANGE_MAMBA_RENAMES = (
+    (r"^encoder\.layer(\d)_block(\d+)", r"encoder.layers.\1.blocks.\2"),
+    (r"^encoder\.downsample(\d)_conv$", r"encoder.layers.\1.downsample.1"),
+    (r"^encoder\.downsample(\d)_norm$", r"encoder.layers.\1.downsample.3"),
+    (r"^encoder\.patch_embed_conv1$", "encoder.patch_embed.0"),
+    (r"^encoder\.patch_embed_norm1$", "encoder.patch_embed.2"),
+    (r"^encoder\.patch_embed_conv2$", "encoder.patch_embed.5"),
+    (r"^encoder\.patch_embed_norm2$", "encoder.patch_embed.7"),
+    (r"^st_block_(\d+)\.proj$", r"decoder.st_block_\1.0"),
+    (r"^st_block_(\d+)\.vss\.", r"decoder.st_block_\1.2."),
+    (r"^fuse_layer_(\d)$", r"decoder.fuse_layer_\1.0"),
+    (r"^fuse_bn_(\d)$", r"decoder.fuse_layer_\1.1"),
+    (r"^smooth_layer_(\d)\.", r"decoder.smooth_layer_\1."),
+)
+
+
+def _change_mamba(w: _Writer) -> None:
+    """Walk the flax tree: each module's path, renamed, is the torch prefix;
+    conv kernels (4-D) and Dense kernels (2-D) change layout, LayerNorm and
+    BatchNorm scales become weights, BN statistics come from batch_stats,
+    and the SS2D leaves (x_proj_weight, A_logs, ...) keep their shapes."""
+
+    def walk(node, stats, path):
+        module = ".".join(path)
+        prefix = module
+        for pat, rep in _CHANGE_MAMBA_RENAMES:
+            prefix = re.sub(pat, rep, prefix)
+        for leaf, value in node.items():
+            if isinstance(value, dict):
+                walk(value, (stats or {}).get(leaf), path + (leaf,))
+            elif leaf == "kernel":
+                w.put(prefix + ".weight", j2t_conv(value) if value.ndim == 4 else j2t_linear(value))
+            elif leaf == "scale":
+                w.put(prefix + ".weight", value)
+            else:
+                w.put(f"{prefix}.{leaf}" if prefix else leaf, value)
+        if stats and "mean" in stats:
+            w.put(prefix + ".running_mean", stats["mean"])
+            w.put(prefix + ".running_var", stats["var"])
+            w.sd[prefix + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+    walk(w.params, w.stats, ())
+
+
+_MODELS = {"smow_net": _smownet, "smow_net_lw": _smownet_lw, "change_mamba": _change_mamba}
 
 
 def state_dict_from_jax(variables, model: str = "smow_net") -> Dict[str, torch.Tensor]:
-    """The port's state_dict of `model` ("smow_net" or "smow_net_lw") from
-    the JAX variables; BN running statistics come from `batch_stats`."""
+    """The port's state_dict of `model` ("smow_net", "smow_net_lw" or
+    "change_mamba") from the JAX variables; BN running statistics come from
+    `batch_stats`."""
     w = _Writer(variables)
     _MODELS[model](w)
     return w.sd

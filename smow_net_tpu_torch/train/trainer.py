@@ -14,7 +14,10 @@ compute_dtype=torch.bfloat16 the forward and backward run on a bf16 cast of
 the fp32 master parameters (`torch.func.functional_call`); the cast is
 differentiable, so the gradients reach the masters in fp32, as JAX's
 `tree_map(astype)` does. BatchNorm running statistics are buffers, never
-cast, and stay fp32.
+cast, and stay fp32. The train state owns a torch.Generator on the model's
+device, seeded by `create_train_state`; every DropPath of the model draws
+its masks from it, so a run can be repeated (JAX folds the step into its
+dropout key instead; the masks differ, their law does not).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Callable
 import torch
 from torch.func import functional_call
 
+from ..nn.ssm import DropPath
 from .loss import bce_dice_loss
 from .metrics import confusion_matrix
 
@@ -105,8 +109,9 @@ def make_optimizer(schedule: Callable, weight_decay: float = 1e-4, clip: float =
 @dataclasses.dataclass
 class TrainState:
     """What a run carries between steps: the model (master parameters and
-    BN statistics), its optimizer, the step count and the metrics summed on
-    the device since the last reset."""
+    BN statistics), its optimizer, the step count, the metrics summed on
+    the device since the last reset, and the generator of the model's
+    DropPath masks."""
 
     model: torch.nn.Module
     optimizer: Optimizer
@@ -114,13 +119,22 @@ class TrainState:
     cm: torch.Tensor
     loss_sum: torch.Tensor
     loss_count: torch.Tensor
+    generator: torch.Generator
 
 
-def create_train_state(model: torch.nn.Module, optimizer: Optimizer) -> TrainState:
+def create_train_state(model: torch.nn.Module, optimizer: Optimizer,
+                       seed: int = 0) -> TrainState:
+    """The state of a run from step 0; attaches its generator, seeded with
+    `seed`, to every DropPath of `model`."""
     device = next(model.parameters()).device
     zero = functools.partial(torch.zeros, dtype=torch.float32, device=device)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.generator = generator
     return TrainState(model=model, optimizer=optimizer, step=0, cm=zero(2, 2),
-                      loss_sum=zero(()), loss_count=zero(()))
+                      loss_sum=zero(()), loss_count=zero(()), generator=generator)
 
 
 def _batch_tensors(batch, device, dtype):

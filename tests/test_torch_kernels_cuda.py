@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels (D, E, C, A-fwd, A-bwd, B, F and
-F-bwd, the layer at D = 128 and 64) against their plain versions, on the
-card. Marked `cuda`; each test skips when no CUDA device is present (there
+F-bwd, the layer at D = 128 and 64; the selective scan's I-fwd, I-ckpt and
+I-bwd) against their plain versions, on the card. Marked `cuda`; each test skips when no CUDA device is present (there
 is no interpret mode for a CUDA kernel). On a GPU machine without JAX,
 skip tests/conftest.py (it configures JAX):
 
@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from smow_net_tpu_torch.ops import _kernels, warp, xattn
+from smow_net_tpu_torch.ops import _kernels, scan, warp, xattn
 
 pytestmark = pytest.mark.cuda
 
@@ -326,3 +326,54 @@ def test_wrappers_raise_on_shapes_the_kernels_do_not_take(dev):
     args, _ = _layer_inputs(dev, np.random.default_rng(0), 96, N=64)
     with pytest.raises(ValueError):                    # D = 96: no kernel built
         xattn.cross_layer_head1(*args, scale=96 ** -0.5)
+
+
+def _scan_inputs(dev, shape, seed):
+    """Kernel I's seven inputs, numpy-seeded: xs, dts (B, K, L, Dk), A
+    (K*Dk, 16) = -exp(.), Bs, Cs (B, K, L, 16), Ds, dt_bias (K*Dk)."""
+    B, K, L, Dk = shape
+    rng = np.random.default_rng(seed)
+
+    def f(*s, scale=1.0, off=0.0):
+        return torch.from_numpy((rng.normal(size=s) * scale + off).astype(np.float32)).to(dev)
+
+    return [f(B, K, L, Dk), f(B, K, L, Dk, scale=0.5), -torch.exp(f(K * Dk, 16, scale=0.5)),
+            f(B, K, L, 16), f(B, K, L, 16), f(K * Dk, scale=0.5, off=1.0),
+            f(K * Dk, scale=0.5, off=-3.0)]
+
+
+# Dk = 40 leaves an idle tail of the 16-channel blocks; L = 100 a ragged
+# last 16-step chunk
+@pytest.mark.parametrize("shape", [(2, 4, 256, 64), (1, 4, 100, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_scan_fwd_kernel_matches_plain(dev, shape, dtype):
+    args = _scan_inputs(dev, shape, 20)
+    args = [a.to(dtype) if i in (0, 1, 3, 4) else a for i, a in enumerate(args)]
+    before = _kernels.launches["selective_scan_fwd"]
+    y = scan.cross_selective_scan(*args)
+    torch.cuda.synchronize()
+    assert _kernels.launches["selective_scan_fwd"] == before + 1 and y.dtype == dtype
+    want = scan.cross_selective_scan_plain(*[a.float() for a in args])
+    _close(y, want, 1e-6, 1e-5 if dtype == torch.float32 else BF16_REL)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 256, 64), (1, 4, 100, 40)])
+def test_scan_bwd_kernels_match_autograd_of_plain(dev, shape):
+    """I-ckpt + I-bwd + the epilogue: all seven input gradients, fp32."""
+    args = [a.requires_grad_() for a in _scan_inputs(dev, shape, 21)]
+    gy = torch.from_numpy(np.random.default_rng(22).normal(size=shape).astype(np.float32)).to(dev)
+    before = {n: _kernels.launches[n] for n in ("selective_scan_ckpt", "selective_scan_bwd")}
+    got = torch.autograd.grad(scan.cross_selective_scan(*args), args, gy)
+    torch.cuda.synchronize()
+    assert all(_kernels.launches[n] == c + 1 for n, c in before.items())
+    want = torch.autograd.grad(scan.cross_selective_scan_plain(*args), args, gy)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-6, 1e-4)
+
+
+def test_scan_kernels_always_take_the_softplus(dev):
+    """Kernel I is built for SS2D's dt = softplus(dts + bias); a CUDA call
+    without the softplus raises instead of computing another function."""
+    args = _scan_inputs(dev, (1, 4, 32, 16), 23)
+    with pytest.raises(ValueError, match="softplus"):
+        scan.cross_selective_scan(*args, delta_softplus=False)
