@@ -1,35 +1,55 @@
-// Kernel I: the fused selective scan (Mamba S6) of the VMamba models' SS2D,
-// as three sweeps: I-fwd (the output y), I-ckpt (the hidden state at the
-// start of every chunk of kChunk steps) and I-bwd (h recomputed inside each
-// chunk from its checkpoint, then the reverse adjoint sweep).
+// Kernel I: the fused selective scan (Mamba S6), as three sweeps: I-fwd (the
+// output y), I-ckpt (the hidden state at the start of every chunk of kChunk
+// steps) and I-bwd (h recomputed inside each chunk from its checkpoint, then
+// the reverse adjoint sweep). Kernel H is the same three sweeps over the flat
+// (B, L, G * Cg) layout, read in place. Kernel H-seg, the segmented long-L
+// scan, adds two sweeps: the carry (I-fwd's sweep that writes only each
+// segment's final state and its dt sum) and the adjoint carry (the reverse
+// recurrence of the adjoint alone); I-fwd, I-ckpt and I-bwd then run seeded
+// with each segment's incoming state and adjoint.
 //
 // Replaces, in smow_net_tpu/ops/pallas/scan_fused.py, `_fwd_kernel` (:147,
 // reached by `_fwd_core`'s pallas_call :413), `_ckpt_kernel` (:261, the first
 // pallas_call of `_bwd_core`, :517) and `_bwd_kernel` (:291, its second,
 // :541): the kernels `selective_scan_fused_grouped` (:841) runs for every
-// SS2D call of ChangeMamba.
+// SS2D call of ChangeMamba and `selective_scan_fused` (:754) for every scan
+// of CD-Mamba; and `_carry_kernel` (:188, `_carry_core`'s pallas_call :445)
+// and `_adjcarry_kernel` (:223, `_adjcarry_core`'s pallas_call :473), which
+// `_fwd_segmented` (:630) and `_bwd_segmented` (:657) run.
 //
-// Layouts (the direction-major grouped ones; row r = b * K + k):
-//   u, dts, y, dy   (rows, L, Dk)               fp32 or bf16 (one dtype)
-//   Bm, Cm          (rows, L, 16)               the same dtype
-//   A               (K, 16, Dk)                 fp32, already -exp(A_log)
-//   Dv, bias        (K * Dk)                    fp32
-//   hck             (rows, ceil(L / 16), 16, Dk) fp32
-//   dus, ddt        (rows, L, Dk)               fp32
-//   dBp, dCp        (ceil(Dk / 16), rows, L, 16) fp32: one partial sum per
+// Rows. A row r = b * G + g (group g takes A, D and the bias of group g) of a
+// sequence of S * L steps is cut into S segments of L steps; the kernels walk
+// row r' = r * S + s, from step s * L. Two layouts (W: the channels Dk, or
+// 16 for B and C):
+//   grouped (flat = 0)  (B * G, S * L, W)       ChangeMamba's direction-major
+//   flat    (flat = 1)  (B, S * L, G, W)        the (B, L, G * Cg) contract
+// u, dts, y, dy, dus and ddt have width Dk; Bm, Cm, dBp and dCp width 16.
+//   u, dts, y, dy   fp32 or bf16 (one dtype)
+//   A               (G, 16, Dk)                 fp32, already -exp(A_log)
+//   Dv, bias        (G * Dk)                    fp32
+//   h0, g0, a0, hend, gend (rows', 16, Dk)      fp32 (rows' = B * G * S)
+//   csum            (rows', Dk)                 fp32: the segment's dt sum
+//   hck             (rows', ceil(L / 16), 16, Dk) fp32
+//   dus, ddt        u's layout                  fp32
+//   dBp, dCp        ceil(Dk / 16) x Bm's layout fp32: one partial sum per
 //                                               16-channel block, summed by
 //                                               the caller
-//   dA              (rows, 16, Dk)              fp32, summed over L
+//   dA              (rows', 16, Dk)             fp32, summed over the segment
 // Per (row, channel, state n), in fp32:
 //   dt_l = softplus(dts_l + bias)   (jax.nn.softplus: log1p(exp(-|x|)) + max(x, 0))
-//   h_l  = exp(dt_l A_n) h_{l-1} + B_l[n] (dt_l u_l)
+//   h_l  = exp(dt_l A_n) h_{l-1} + B_l[n] (dt_l u_l),  h_{-1} = h0 (0 when null)
 //   y_l  = sum_n C_l[n] h_l[n] + D u_l
-// and the adjoint g_l = C_l dy_l + exp(dt_{l+1} A) g_{l+1}, walked backwards.
+// and the adjoint g_l = C_l dy_l + exp(dt_{l+1} A) g_{l+1}, walked backwards
+// from g_L = g0 with exp(dt_L A) = a0 (both 0 when null).
 //
 // What bounds it on the card: the exponentials. Every (row, step, channel,
 // state) takes one exp on the multi-function unit (16 per clock per SM); the
 // bytes are about 8 per (row, step, channel). The backward takes three exps
-// per state-step (checkpoint sweep, recompute, reverse sweep).
+// per state-step (checkpoint sweep, recompute, reverse sweep). At CD-Mamba's
+// long sequences (L = 65536, 32-64 rows of 32 channels) the rows give one
+// warp per SM or less, and a serial walk with nothing to hide its latency is
+// far from that bound: segmenting L multiplies the rows by S at the cost of
+// the carry sweeps (ops/scan.py `seg_count` decides).
 //
 // Design: the TPU kernels tiled (bt rows, chunk, Cg lanes) for VMEM and the
 // 128 lanes. Here two lanes own one (row, channel), eight of its 16 states
@@ -38,13 +58,15 @@
 // arithmetic (the walk is serial, so warps in flight, not bytes, set the
 // pace). y and the per-channel sums take one shuffle between the two lanes.
 // The B and C rows of a chunk of 16 steps (shared by every channel of the
-// row) are staged in shared memory; a full chunk's 16 steps run without a
-// branch, the softplus of all 16 taken up front, so one step's exps overlap
-// the last one's sums. I-bwd keeps the chunk's states per lane in shared
+// row) are staged in shared memory, every load of a chunk issued before the
+// first is waited on; a full chunk's 16 steps run without a branch, the
+// softplus of all 16 taken up front, so one step's exps overlap the last
+// one's sums. I-bwd keeps the chunk's states per lane in shared
 // memory (16 KB a block), sums dB and dC over the warp's 16 channels at
 // every step with a butterfly of shuffles that leaves each lane group one
 // state's sum (no atomics, so the result is the same on every run), and
-// sums dA over L in registers.
+// sums dA over L in registers. Each kernel computes its rows' offsets from
+// the layout, so the flat layout needs no transposed copy on either side.
 
 #include "common.cuh"
 
@@ -58,16 +80,58 @@ constexpr int kChannels = kLanes / 2;   // channels per block
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// I-fwd's sweep writes y, I-ckpt's the chunk-start states, the carry's the
+// final state and the dt sum
+enum { kModeFwd = 0, kModeCkpt = 1, kModeCarry = 2 };
+
+// Where row r' = blockIdx.y of a call lies in its tensors (see the header);
+// the layout is a template parameter, so the grouped layout's strides are
+// the compile-time widths.
+template <bool kFlat>
+struct Rows {
+  int L;      // steps each row walks
+  int S;      // segments per sequence
+  int G;      // groups
+
+  __device__ __forceinline__ int group(int rs) const { return (rs / S) % G; }
+  // distance between consecutive steps in a tensor of width W
+  __device__ __forceinline__ int step(int W) const { return kFlat ? G * W : W; }
+  // offset of row rs's first step in a tensor of width W
+  __device__ __forceinline__ size_t base(int rs, int W) const {
+    if (!kFlat) return (size_t)rs * L * W;    // rows of S * L steps: r * S * L + s * L = rs * L
+    const int r = rs / S, s = rs % S;
+    return ((size_t)(r / G) * S * L * G + (r % G)) * W + (size_t)s * L * G * W;
+  }
+};
+
 __device__ __forceinline__ float softplus(float x) {
   return log1pf(expf(-fabsf(x))) + fmaxf(x, 0.f);
 }
 
-// The chunk's n_t rows of 16 values starting at `src` (contiguous) into
-// dst[t][n] as fp32; rows past n_t are zero.
+// A chunk's rows of B or C (16 values a step) pass through registers on the
+// way to shared memory: each lane loads its kRowVals of the chunk's 16 x 16
+// values, all loads issued together (with one warp per SM, as at CD-Mamba's
+// long sequences, loads issued one after another cost a memory latency
+// each), then stores them once the previous chunk's rows are read.
+constexpr int kRowVals = kChunk * kN / kLanes;
+
+// The chunk's n_t rows, row t at src + t * sn, as fp32 (zero past n_t).
 template <typename T>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src, float (*dst)[kN], int n_t) {
-  for (int i = threadIdx.x; i < kChunk * kN; i += kLanes)
-    dst[i / kN][i % kN] = (i / kN < n_t) ? smow::to_float(src[i]) : 0.f;
+__device__ __forceinline__ void load_rows(const T* __restrict__ src, int sn, int n_t,
+                                          float (&v)[kRowVals]) {
+#pragma unroll
+  for (int k = 0; k < kRowVals; ++k) {
+    const int i = threadIdx.x + k * kLanes, t = i / kN, n = i % kN;
+    v[k] = (t < n_t) ? smow::to_float(src[t * sn + n]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void store_rows(const float (&v)[kRowVals], float (*dst)[kN]) {
+#pragma unroll
+  for (int k = 0; k < kRowVals; ++k) {
+    const int i = threadIdx.x + k * kLanes;
+    dst[i / kN][i % kN] = v[k];
+  }
 }
 
 // One step of the butterfly: keep half of the 2W values, send the other half
@@ -92,13 +156,13 @@ __device__ __forceinline__ void channel_sum8(float (&v)[kHalf], int lane) {
   v[0] += __shfl_xor_sync(0xffffffffu, v[0], 2);
 }
 
-// One thread's column of a chunk: u, dt = softplus(dts + bias) and, for
-// I-bwd, dy, for the chunk's n_t steps (zeros past them). All loads and
-// softpluses are independent, so they issue together.
-template <typename T, bool kFull>
+// One thread's column of a chunk: u (kU), dt = softplus(dts + bias) and dy
+// (kDy), for the chunk's n_t steps (zeros past them; dy zero on idle lanes).
+// All loads and softpluses are independent, so they issue together.
+template <typename T, bool kFull, bool kU, bool kDy>
 __device__ __forceinline__ void load_chunk(const T* __restrict__ u, const T* __restrict__ dts,
-                                           const T* __restrict__ dy, size_t at, int Dk, int n_t,
-                                           float bias_c, bool active,
+                                           const T* __restrict__ dy, size_t at, int su,
+                                           int n_t, float bias_c, bool active,
                                            float (&uu)[kChunk], float (&dd)[kChunk],
                                            float (&gy)[kChunk]) {
 #pragma unroll
@@ -107,24 +171,25 @@ __device__ __forceinline__ void load_chunk(const T* __restrict__ u, const T* __r
     dd[t] = 0.f;
     gy[t] = 0.f;
     if (kFull || t < n_t) {
-      const size_t i = at + (size_t)t * Dk;
-      uu[t] = smow::to_float(u[i]);
+      const size_t i = at + t * su;
+      if (kU) uu[t] = smow::to_float(u[i]);
       dd[t] = softplus(smow::to_float(dts[i]) + bias_c);
-      if (dy != nullptr && active) gy[t] = smow::to_float(dy[i]);
+      if (kDy && active) gy[t] = smow::to_float(dy[i]);
     }
   }
 }
 
-// I-fwd's (or I-ckpt's) steps of one chunk over this lane's 8 states (n0..);
-// the lane with n0 = 0 stores y. kFull: all kChunk steps, with no per-step
-// branch, so the compiler can overlap one step's exps with the last one's
-// sums.
-template <typename T, bool kCkpt, bool kFull>
+// The forward sweep's steps of one chunk over this lane's 8 states (n0..);
+// in kModeFwd the lane with n0 = 0 stores y. kFull: all kChunk steps, with
+// no per-step branch, so the compiler can overlap one step's exps with the
+// last one's sums.
+template <typename T, int kMode, bool kFull>
 __device__ __forceinline__ void fwd_steps(const float (&uu)[kChunk], const float (&dd)[kChunk],
                                           const float (*sB)[kN], const float (*sC)[kN],
                                           const float (&a2)[kHalf], float (&h)[kHalf], int n0,
-                                          float d_c, T* __restrict__ y, size_t at, int Dk,
+                                          float d_c, T* __restrict__ y, size_t at, int su,
                                           int n_t, bool store) {
+  constexpr bool kY = kMode == kModeFwd;
 #pragma unroll
   for (int t = 0; t < kChunk; ++t) {
     if (kFull || t < n_t) {
@@ -133,25 +198,29 @@ __device__ __forceinline__ void fwd_steps(const float (&uu)[kChunk], const float
 #pragma unroll
       for (int i = 0; i < kHalf; ++i) {
         h[i] = exp2f(dt * a2[i]) * h[i] + sB[t][n0 + i] * dtu;
-        if (!kCkpt) acc[i % 2] += sC[t][n0 + i] * h[i];
+        if (kY) acc[i % 2] += sC[t][n0 + i] * h[i];
       }
-      if (!kCkpt) {
+      if (kY) {
         float sum = acc[0] + acc[1];
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        if (store) y[at + (size_t)t * Dk] = smow::from_float<T>(sum + d_c * uu[t]);
+        if (store) y[at + t * su] = smow::from_float<T>(sum + d_c * uu[t]);
       }
     }
   }
 }
 
-// I-fwd (kCkpt = false): y. I-ckpt (kCkpt = true): the state before every
-// chunk into hck, no y (Cm, Dv and y are not read).
-template <typename T, bool kCkpt>
+// I-fwd (kModeFwd): y. I-ckpt (kModeCkpt): the state before every chunk into
+// hout (rows', chunks, 16, Dk). The carry (kModeCarry): the state after the
+// last step into hout (rows', 16, Dk) and the sum of dt into csum. Cm, Dv
+// and y are read or written in kModeFwd only; h0 may be null.
+template <typename T, int kMode, bool kFlat>
 __global__ void __launch_bounds__(kLanes)
 scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dts, const T* __restrict__ Bm,
                 const T* __restrict__ Cm, const float* __restrict__ A,
                 const float* __restrict__ Dv, const float* __restrict__ bias,
-                T* __restrict__ y, float* __restrict__ hck, int L, int Dk, int K) {
+                const float* __restrict__ h0, T* __restrict__ y, float* __restrict__ hout,
+                float* __restrict__ csum, Rows<kFlat> rw, int Dk) {
+  constexpr bool kY = kMode == kModeFwd;
   __shared__ float sB[kChunk][kN];
   __shared__ float sC[kChunk][kN];
   const int lane = threadIdx.x;
@@ -160,41 +229,57 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dts, const T* __r
   const int n0 = (lane & 1) * kHalf;
   const bool active = c < Dk;
   const int cc = active ? c : Dk - 1;     // idle lanes read a valid channel, store nothing
-  const int k = r % K;
+  const int k = rw.group(r);
   float a2[kHalf], h[kHalf];
 #pragma unroll
   for (int i = 0; i < kHalf; ++i) {
     a2[i] = A[((size_t)k * kN + n0 + i) * Dk + cc] * kLog2e;   // exp(dt A) = exp2(dt a2)
-    h[i] = 0.f;
+    h[i] = (h0 != nullptr && active) ? h0[((size_t)r * kN + n0 + i) * Dk + c] : 0.f;
   }
   const float bias_c = bias[(size_t)k * Dk + cc];
-  const float d_c = kCkpt ? 0.f : Dv[(size_t)k * Dk + cc];
+  const float d_c = kY ? Dv[(size_t)k * Dk + cc] : 0.f;
   const bool store = active && n0 == 0;
-  const size_t row = (size_t)r * L;
+  const int L = rw.L;
+  const int su = rw.step(Dk), sn = rw.step(kN);
+  const size_t row_u = rw.base(r, Dk) + cc, row_n = rw.base(r, kN);
   const int n_chunks = (L + kChunk - 1) / kChunk;
+  float dsum = 0.f;
   for (int j = 0; j < n_chunks; ++j) {
     const int l0 = j * kChunk;
     const int n_t = min(kChunk, L - l0);
     const bool full = n_t == kChunk;
-    const size_t at = (row + l0) * Dk + cc;
-    if (kCkpt && active) {
-      float* dst = hck + (((size_t)r * n_chunks + j) * kN + n0) * Dk + c;
+    const size_t at = row_u + (size_t)l0 * su;
+    if (kMode == kModeCkpt && active) {
+      float* dst = hout + (((size_t)r * n_chunks + j) * kN + n0) * Dk + c;
 #pragma unroll
       for (int i = 0; i < kHalf; ++i) dst[(size_t)i * Dk] = h[i];
     }
-    float uu[kChunk], dd[kChunk], unused[kChunk];
+    float uu[kChunk], dd[kChunk], unused[kChunk], vB[kRowVals], vC[kRowVals];
+    load_rows<T>(Bm + row_n + (size_t)l0 * sn, sn, n_t, vB);
+    if (kY) load_rows<T>(Cm + row_n + (size_t)l0 * sn, sn, n_t, vC);
     if (full)
-      load_chunk<T, true>(u, dts, nullptr, at, Dk, n_t, bias_c, active, uu, dd, unused);
+      load_chunk<T, true, true, false>(u, dts, nullptr, at, su, n_t, bias_c, active, uu, dd,
+                                       unused);
     else
-      load_chunk<T, false>(u, dts, nullptr, at, Dk, n_t, bias_c, active, uu, dd, unused);
+      load_chunk<T, false, true, false>(u, dts, nullptr, at, su, n_t, bias_c, active, uu, dd,
+                                        unused);
+    if (kMode == kModeCarry) {
+#pragma unroll
+      for (int t = 0; t < kChunk; ++t) dsum += dd[t];    // zero past n_t
+    }
     __syncthreads();    // the previous chunk's rows are read
-    stage_rows<T>(Bm + (row + l0) * kN, sB, n_t);
-    if (!kCkpt) stage_rows<T>(Cm + (row + l0) * kN, sC, n_t);
+    store_rows(vB, sB);
+    if (kY) store_rows(vC, sC);
     __syncthreads();
     if (full)
-      fwd_steps<T, kCkpt, true>(uu, dd, sB, sC, a2, h, n0, d_c, y, at, Dk, n_t, store);
+      fwd_steps<T, kMode, true>(uu, dd, sB, sC, a2, h, n0, d_c, y, at, su, n_t, store);
     else
-      fwd_steps<T, kCkpt, false>(uu, dd, sB, sC, a2, h, n0, d_c, y, at, Dk, n_t, store);
+      fwd_steps<T, kMode, false>(uu, dd, sB, sC, a2, h, n0, d_c, y, at, su, n_t, store);
+  }
+  if (kMode == kModeCarry && active) {
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) hout[((size_t)r * kN + n0 + i) * Dk + c] = h[i];
+    if (n0 == 0) csum[(size_t)r * Dk + c] = dsum;
   }
 }
 
@@ -210,8 +295,8 @@ __device__ __forceinline__ void bwd_steps(const float (&uu)[kChunk], const float
                                           float (&dA_acc)[kHalf], int n0,
                                           float* __restrict__ dus, float* __restrict__ ddt,
                                           float* __restrict__ dB_blk, float* __restrict__ dC_blk,
-                                          size_t at, int l0, int Dk, int n_t, bool store,
-                                          int lane) {
+                                          size_t at, int su, int l0, int sn, int n_t,
+                                          bool store, int lane) {
 #pragma unroll
   for (int t = 0; t < kChunk; ++t) {
     if (kFull || t < n_t) {
@@ -247,31 +332,33 @@ __device__ __forceinline__ void bwd_steps(const float (&uu)[kChunk], const float
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       s_a += __shfl_xor_sync(0xffffffffu, s_a, 1);
       if (store) {
-        dus[at + (size_t)t * Dk] = dt * s;
-        ddt[at + (size_t)t * Dk] = uu[t] * s + s_a * kLn2;     // sum_n gha A_n
+        dus[at + t * su] = dt * s;
+        ddt[at + t * su] = uu[t] * s + s_a * kLn2;     // sum_n gha A_n
       }
       channel_sum8(vB, lane);
       channel_sum8(vC, lane);
       if ((lane & 2) == 0) {
         const int n = n0 + ((lane >> 2) & 7);
-        dB_blk[(size_t)(l0 + t) * kN + n] = vB[0];
-        dC_blk[(size_t)(l0 + t) * kN + n] = vC[0];
+        dB_blk[(size_t)(l0 + t) * sn + n] = vB[0];
+        dC_blk[(size_t)(l0 + t) * sn + n] = vC[0];
       }
     }
   }
 }
 
-// I-bwd: chunks last to first. ddt is the gradient with respect to dt after
-// the softplus (the caller applies its derivative, as the JAX package's
-// epilogue does).
-template <typename T>
+// I-bwd: chunks last to first, from the adjoint g0 and the decay a0 of the
+// step after the row (null: 0). ddt is the gradient with respect to dt
+// after the softplus (the caller applies its derivative, as the JAX
+// package's epilogue does).
+template <typename T, bool kFlat>
 __global__ void __launch_bounds__(kLanes)
 scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dts, const T* __restrict__ Bm,
                 const T* __restrict__ Cm, const T* __restrict__ dy,
                 const float* __restrict__ A, const float* __restrict__ bias,
-                const float* __restrict__ hck, float* __restrict__ dus, float* __restrict__ ddt,
-                float* __restrict__ dBp, float* __restrict__ dCp, float* __restrict__ dA, int L,
-                int Dk, int K) {
+                const float* __restrict__ hck, const float* __restrict__ g0,
+                const float* __restrict__ a0, float* __restrict__ dus, float* __restrict__ ddt,
+                float* __restrict__ dBp, float* __restrict__ dCp, float* __restrict__ dA,
+                Rows<kFlat> rw, int Dk) {
   __shared__ float sH[kChunk][kHalf][kLanes];
   __shared__ float sB[kChunk][kN];
   __shared__ float sC[kChunk][kN];
@@ -280,45 +367,52 @@ scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dts, const T* __r
   const int c = blockIdx.x * kChannels + (lane >> 1);
   const int n0 = (lane & 1) * kHalf;
   const bool active = c < Dk;
-  const int cc = active ? c : Dk - 1;     // idle lanes see dy = 0: g, dB, dC stay 0
-  const int k = r % K;
+  const int cc = active ? c : Dk - 1;     // idle lanes see dy = 0 and g = 0: dB, dC stay 0
+  const int k = rw.group(r);
   float a2[kHalf], g[kHalf], a_next[kHalf], dA_acc[kHalf];
 #pragma unroll
   for (int i = 0; i < kHalf; ++i) {
+    const size_t at = ((size_t)r * kN + n0 + i) * Dk + c;
     a2[i] = A[((size_t)k * kN + n0 + i) * Dk + cc] * kLog2e;
-    g[i] = 0.f;
-    a_next[i] = 0.f;
+    g[i] = (g0 != nullptr && active) ? g0[at] : 0.f;
+    a_next[i] = (a0 != nullptr && active) ? a0[at] : 0.f;
     dA_acc[i] = 0.f;
   }
   const float bias_c = bias[(size_t)k * Dk + cc];
   const bool store = active && n0 == 0;
-  const size_t row = (size_t)r * L;
+  const int L = rw.L;
+  const int su = rw.step(Dk), sn = rw.step(kN);
+  const size_t row_u = rw.base(r, Dk) + cc, row_n = rw.base(r, kN);
   const int n_chunks = (L + kChunk - 1) / kChunk;
-  float* dB_blk = dBp + ((size_t)blockIdx.x * gridDim.y + r) * L * kN;
-  float* dC_blk = dCp + ((size_t)blockIdx.x * gridDim.y + r) * L * kN;
+  // this block's partial: block x of ceil(Dk / 16), each as large as Bm
+  const size_t part = (size_t)blockIdx.x * gridDim.y * L * kN;
+  float* dB_blk = dBp + part + row_n;
+  float* dC_blk = dCp + part + row_n;
   for (int j = n_chunks - 1; j >= 0; --j) {
     const int l0 = j * kChunk;
     const int n_t = min(kChunk, L - l0);
     const bool full = n_t == kChunk;
-    const size_t at = (row + l0) * Dk + cc;
-    float uu[kChunk], dd[kChunk], gy[kChunk], h[kHalf];
+    const size_t at = row_u + (size_t)l0 * su;
+    float uu[kChunk], dd[kChunk], gy[kChunk], h[kHalf], vB[kRowVals], vC[kRowVals];
+    load_rows<T>(Bm + row_n + (size_t)l0 * sn, sn, n_t, vB);
+    load_rows<T>(Cm + row_n + (size_t)l0 * sn, sn, n_t, vC);
     if (full)
-      load_chunk<T, true>(u, dts, dy, at, Dk, n_t, bias_c, active, uu, dd, gy);
+      load_chunk<T, true, true, true>(u, dts, dy, at, su, n_t, bias_c, active, uu, dd, gy);
     else
-      load_chunk<T, false>(u, dts, dy, at, Dk, n_t, bias_c, active, uu, dd, gy);
+      load_chunk<T, false, true, true>(u, dts, dy, at, su, n_t, bias_c, active, uu, dd, gy);
     const float* ck = hck + (((size_t)r * n_chunks + j) * kN + n0) * Dk + cc;
 #pragma unroll
     for (int i = 0; i < kHalf; ++i) h[i] = ck[(size_t)i * Dk];
     __syncthreads();    // the previous chunk's rows are read
-    stage_rows<T>(Bm + (row + l0) * kN, sB, n_t);
-    stage_rows<T>(Cm + (row + l0) * kN, sC, n_t);
+    store_rows(vB, sB);
+    store_rows(vC, sC);
     __syncthreads();
     if (full)
       bwd_steps<true>(uu, dd, gy, sB, sC, sH, a2, h, g, a_next, dA_acc, n0, dus, ddt, dB_blk,
-                      dC_blk, at, l0, Dk, n_t, store, lane);
+                      dC_blk, at, su, l0, sn, n_t, store, lane);
     else
       bwd_steps<false>(uu, dd, gy, sB, sC, sH, a2, h, g, a_next, dA_acc, n0, dus, ddt, dB_blk,
-                       dC_blk, at, l0, Dk, n_t, store, lane);
+                       dC_blk, at, su, l0, sn, n_t, store, lane);
   }
   if (active) {
 #pragma unroll
@@ -326,80 +420,244 @@ scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dts, const T* __r
   }
 }
 
-bool bad_shape(int rows, int L, int Dk, int K) {
-  return rows <= 0 || L <= 0 || Dk <= 0 || K <= 0 || rows % K != 0 || rows > 65535;
+// The adjoint carry's steps of one chunk, last to first, over this lane's 8
+// states: g_l = C_l dy_l + a_{l+1} g_{l+1}, then a_l = exp(dt_l A).
+template <bool kFull>
+__device__ __forceinline__ void adj_steps(const float (&dd)[kChunk], const float (&gy)[kChunk],
+                                          const float (*sC)[kN], const float (&a2)[kHalf],
+                                          float (&g)[kHalf], float (&a_next)[kHalf], int n0,
+                                          int n_t) {
+#pragma unroll
+  for (int t = kChunk - 1; t >= 0; --t) {
+    if (kFull || t < n_t) {
+#pragma unroll
+      for (int i = 0; i < kHalf; ++i) {
+        g[i] = sC[t][n0 + i] * gy[t] + a_next[i] * g[i];
+        a_next[i] = exp2f(dd[t] * a2[i]);
+      }
+    }
+  }
 }
 
-template <typename T, bool kCkpt>
-cudaError_t launch_fwd(const void* u, const void* dts, const void* Bm, const void* Cm,
-                       const void* A, const void* Dv, const void* bias, void* y, void* hck,
-                       int rows, int L, int Dk, int K, cudaStream_t s) {
-  const dim3 grid((Dk + kChannels - 1) / kChannels, rows);
-  scan_fwd_kernel<T, kCkpt><<<grid, kLanes, 0, s>>>(
+// The adjoint carry: the reverse sweep from zero incoming adjoint, reading
+// dts, Cm and dy only; writes g at the row's first step into gout (rows',
+// 16, Dk).
+template <typename T, bool kFlat>
+__global__ void __launch_bounds__(kLanes)
+scan_adjcarry_kernel(const T* __restrict__ dts, const T* __restrict__ Cm,
+                     const T* __restrict__ dy, const float* __restrict__ A,
+                     const float* __restrict__ bias, float* __restrict__ gout, Rows<kFlat> rw,
+                     int Dk) {
+  __shared__ float sC[kChunk][kN];
+  const int lane = threadIdx.x;
+  const int r = blockIdx.y;
+  const int c = blockIdx.x * kChannels + (lane >> 1);
+  const int n0 = (lane & 1) * kHalf;
+  const bool active = c < Dk;
+  const int cc = active ? c : Dk - 1;     // idle lanes see dy = 0: g stays 0
+  const int k = rw.group(r);
+  float a2[kHalf], g[kHalf], a_next[kHalf];
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+    a2[i] = A[((size_t)k * kN + n0 + i) * Dk + cc] * kLog2e;
+    g[i] = 0.f;
+    a_next[i] = 0.f;
+  }
+  const float bias_c = bias[(size_t)k * Dk + cc];
+  const int L = rw.L;
+  const int su = rw.step(Dk), sn = rw.step(kN);
+  const size_t row_u = rw.base(r, Dk) + cc, row_n = rw.base(r, kN);
+  const int n_chunks = (L + kChunk - 1) / kChunk;
+  for (int j = n_chunks - 1; j >= 0; --j) {
+    const int l0 = j * kChunk;
+    const int n_t = min(kChunk, L - l0);
+    const bool full = n_t == kChunk;
+    const size_t at = row_u + (size_t)l0 * su;
+    float unused[kChunk], dd[kChunk], gy[kChunk], vC[kRowVals];
+    load_rows<T>(Cm + row_n + (size_t)l0 * sn, sn, n_t, vC);
+    if (full)
+      load_chunk<T, true, false, true>(nullptr, dts, dy, at, su, n_t, bias_c, active, unused, dd,
+                                       gy);
+    else
+      load_chunk<T, false, false, true>(nullptr, dts, dy, at, su, n_t, bias_c, active, unused,
+                                        dd, gy);
+    __syncthreads();    // the previous chunk's rows are read
+    store_rows(vC, sC);
+    __syncthreads();
+    if (full)
+      adj_steps<true>(dd, gy, sC, a2, g, a_next, n0, n_t);
+    else
+      adj_steps<false>(dd, gy, sC, a2, g, a_next, n0, n_t);
+  }
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) gout[((size_t)r * kN + n0 + i) * Dk + c] = g[i];
+  }
+}
+
+bool bad_shape(int rows, int L, int Dk, int G, int S, int flat) {
+  return rows <= 0 || L <= 0 || Dk <= 0 || G <= 0 || S <= 0 || rows % ((long long)G * S) != 0 ||
+         rows > 65535 || (flat != 0 && flat != 1);
+}
+
+dim3 grid_of(int rows, int Dk) { return dim3((Dk + kChannels - 1) / kChannels, rows); }
+
+template <typename T, int kMode, bool kFlat>
+void launch_fwd_as(const void* u, const void* dts, const void* Bm, const void* Cm, const void* A,
+                   const void* Dv, const void* bias, const void* h0, void* y, void* hout,
+                   void* csum, int rows, int L, int Dk, int G, int S, cudaStream_t s) {
+  scan_fwd_kernel<T, kMode, kFlat><<<grid_of(rows, Dk), kLanes, 0, s>>>(
       static_cast<const T*>(u), static_cast<const T*>(dts), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<const float*>(A), static_cast<const float*>(Dv),
-      static_cast<const float*>(bias), static_cast<T*>(y), static_cast<float*>(hck), L, Dk, K);
+      static_cast<const float*>(bias), static_cast<const float*>(h0), static_cast<T*>(y),
+      static_cast<float*>(hout), static_cast<float*>(csum), Rows<kFlat>{L, S, G}, Dk);
+}
+
+template <typename T, int kMode>
+cudaError_t launch_fwd(const void* u, const void* dts, const void* Bm, const void* Cm,
+                       const void* A, const void* Dv, const void* bias, const void* h0, void* y,
+                       void* hout, void* csum, int rows, int L, int Dk, int G, int S, int flat,
+                       cudaStream_t s) {
+  if (flat)
+    launch_fwd_as<T, kMode, true>(u, dts, Bm, Cm, A, Dv, bias, h0, y, hout, csum, rows, L, Dk,
+                                  G, S, s);
+  else
+    launch_fwd_as<T, kMode, false>(u, dts, Bm, Cm, A, Dv, bias, h0, y, hout, csum, rows, L, Dk,
+                                   G, S, s);
   return cudaGetLastError();
+}
+
+template <typename T, bool kFlat>
+void launch_bwd_as(const void* u, const void* dts, const void* Bm, const void* Cm,
+                   const void* dy, const void* A, const void* bias, const void* hck,
+                   const void* g0, const void* a0, void* dus, void* ddt, void* dBp, void* dCp,
+                   void* dA, int rows, int L, int Dk, int G, int S, cudaStream_t s) {
+  scan_bwd_kernel<T, kFlat><<<grid_of(rows, Dk), kLanes, 0, s>>>(
+      static_cast<const T*>(u), static_cast<const T*>(dts), static_cast<const T*>(Bm),
+      static_cast<const T*>(Cm), static_cast<const T*>(dy), static_cast<const float*>(A),
+      static_cast<const float*>(bias), static_cast<const float*>(hck),
+      static_cast<const float*>(g0), static_cast<const float*>(a0), static_cast<float*>(dus),
+      static_cast<float*>(ddt), static_cast<float*>(dBp), static_cast<float*>(dCp),
+      static_cast<float*>(dA), Rows<kFlat>{L, S, G}, Dk);
 }
 
 template <typename T>
 cudaError_t launch_bwd(const void* u, const void* dts, const void* Bm, const void* Cm,
                        const void* dy, const void* A, const void* bias, const void* hck,
-                       void* dus, void* ddt, void* dBp, void* dCp, void* dA, int rows, int L,
-                       int Dk, int K, cudaStream_t s) {
-  const dim3 grid((Dk + kChannels - 1) / kChannels, rows);
-  scan_bwd_kernel<T><<<grid, kLanes, 0, s>>>(
-      static_cast<const T*>(u), static_cast<const T*>(dts), static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), static_cast<const T*>(dy), static_cast<const float*>(A),
-      static_cast<const float*>(bias), static_cast<const float*>(hck), static_cast<float*>(dus),
-      static_cast<float*>(ddt), static_cast<float*>(dBp), static_cast<float*>(dCp),
-      static_cast<float*>(dA), L, Dk, K);
+                       const void* g0, const void* a0, void* dus, void* ddt, void* dBp,
+                       void* dCp, void* dA, int rows, int L, int Dk, int G, int S, int flat,
+                       cudaStream_t s) {
+  if (flat)
+    launch_bwd_as<T, true>(u, dts, Bm, Cm, dy, A, bias, hck, g0, a0, dus, ddt, dBp, dCp, dA,
+                           rows, L, Dk, G, S, s);
+  else
+    launch_bwd_as<T, false>(u, dts, Bm, Cm, dy, A, bias, hck, g0, a0, dus, ddt, dBp, dCp, dA,
+                            rows, L, Dk, G, S, s);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_adjcarry(const void* dts, const void* Cm, const void* dy, const void* A,
+                            const void* bias, void* gout, int rows, int L, int Dk, int G, int S,
+                            int flat, cudaStream_t s) {
+  const dim3 grid = grid_of(rows, Dk);
+  const T* d = static_cast<const T*>(dts);
+  const T* c = static_cast<const T*>(Cm);
+  const T* g = static_cast<const T*>(dy);
+  const float* a = static_cast<const float*>(A);
+  const float* b = static_cast<const float*>(bias);
+  float* o = static_cast<float*>(gout);
+  if (flat)
+    scan_adjcarry_kernel<T, true><<<grid, kLanes, 0, s>>>(d, c, g, a, b, o, Rows<true>{L, S, G},
+                                                          Dk);
+  else
+    scan_adjcarry_kernel<T, false><<<grid, kLanes, 0, s>>>(d, c, g, a, b, o,
+                                                           Rows<false>{L, S, G}, Dk);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// I-fwd: y (rows, L, Dk) in u's dtype.
+// Every entry: rows = B * G * S rows of L steps each, Dk channels, G groups,
+// S segments per sequence, the layout (flat), the dtype of the T tensors.
+
+// I-fwd: y in u's layout and dtype, from h0 (null: 0).
 extern "C" int selective_scan_fwd(const void* u, const void* dts, const void* Bm, const void* Cm,
-                                  const void* A, const void* Dv, const void* bias, void* y,
-                                  int rows, int L, int Dk, int K, int is_bf16, void* stream) {
-  if (bad_shape(rows, L, Dk, K)) return cudaErrorInvalidValue;
+                                  const void* A, const void* Dv, const void* bias,
+                                  const void* h0, void* y, int rows, int L, int Dk, int G, int S,
+                                  int flat, int is_bf16, void* stream) {
+  if (bad_shape(rows, L, Dk, G, S, flat)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_fwd<__nv_bfloat16, false>(u, dts, Bm, Cm, A, Dv, bias, y, nullptr, rows,
-                                                 L, Dk, K, s)
-              : launch_fwd<float, false>(u, dts, Bm, Cm, A, Dv, bias, y, nullptr, rows, L, Dk,
-                                         K, s);
+      is_bf16 ? launch_fwd<__nv_bfloat16, kModeFwd>(u, dts, Bm, Cm, A, Dv, bias, h0, y, nullptr,
+                                                    nullptr, rows, L, Dk, G, S, flat, s)
+              : launch_fwd<float, kModeFwd>(u, dts, Bm, Cm, A, Dv, bias, h0, y, nullptr,
+                                            nullptr, rows, L, Dk, G, S, flat, s);
   return static_cast<int>(err);
 }
 
-// I-ckpt: hck (rows, ceil(L / 16), 16, Dk) fp32, the state before each chunk.
+// I-ckpt: hck (rows, ceil(L / 16), 16, Dk) fp32, the state before each chunk,
+// from h0 (null: 0).
 extern "C" int selective_scan_ckpt(const void* u, const void* dts, const void* Bm, const void* A,
-                                   const void* bias, void* hck, int rows, int L, int Dk, int K,
-                                   int is_bf16, void* stream) {
-  if (bad_shape(rows, L, Dk, K)) return cudaErrorInvalidValue;
+                                   const void* bias, const void* h0, void* hck, int rows, int L,
+                                   int Dk, int G, int S, int flat, int is_bf16, void* stream) {
+  if (bad_shape(rows, L, Dk, G, S, flat)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_fwd<__nv_bfloat16, true>(u, dts, Bm, nullptr, A, nullptr, bias, nullptr,
-                                                hck, rows, L, Dk, K, s)
-              : launch_fwd<float, true>(u, dts, Bm, nullptr, A, nullptr, bias, nullptr, hck,
-                                        rows, L, Dk, K, s);
+      is_bf16 ? launch_fwd<__nv_bfloat16, kModeCkpt>(u, dts, Bm, nullptr, A, nullptr, bias, h0,
+                                                     nullptr, hck, nullptr, rows, L, Dk, G, S,
+                                                     flat, s)
+              : launch_fwd<float, kModeCkpt>(u, dts, Bm, nullptr, A, nullptr, bias, h0, nullptr,
+                                             hck, nullptr, rows, L, Dk, G, S, flat, s);
   return static_cast<int>(err);
 }
 
-// I-bwd: dus, ddt (rows, L, Dk), the per-block partials dBp, dCp
-// (ceil(Dk / 16), rows, L, 16) and dA (rows, 16, Dk), all fp32.
+// H-seg carry: hend (rows, 16, Dk), the state after each row's last step from
+// h0 (null: 0), and csum (rows, Dk), its sum of dt; fp32, no y.
+extern "C" int selective_scan_carry(const void* u, const void* dts, const void* Bm, const void* A,
+                                    const void* bias, const void* h0, void* hend, void* csum,
+                                    int rows, int L, int Dk, int G, int S, int flat, int is_bf16,
+                                    void* stream) {
+  if (bad_shape(rows, L, Dk, G, S, flat)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch_fwd<__nv_bfloat16, kModeCarry>(u, dts, Bm, nullptr, A, nullptr, bias, h0,
+                                                      nullptr, hend, csum, rows, L, Dk, G, S,
+                                                      flat, s)
+              : launch_fwd<float, kModeCarry>(u, dts, Bm, nullptr, A, nullptr, bias, h0,
+                                              nullptr, hend, csum, rows, L, Dk, G, S, flat, s);
+  return static_cast<int>(err);
+}
+
+// I-bwd: dus, ddt (u's layout), the per-block partials dBp, dCp (ceil(Dk /
+// 16) x Bm's layout) and dA (rows, 16, Dk), all fp32; g0 and a0 (rows, 16,
+// Dk) seed the adjoint from the right (null: 0).
 extern "C" int selective_scan_bwd(const void* u, const void* dts, const void* Bm, const void* Cm,
                                   const void* dy, const void* A, const void* bias,
-                                  const void* hck, void* dus, void* ddt, void* dBp, void* dCp,
-                                  void* dA, int rows, int L, int Dk, int K, int is_bf16,
-                                  void* stream) {
-  if (bad_shape(rows, L, Dk, K)) return cudaErrorInvalidValue;
+                                  const void* hck, const void* g0, const void* a0, void* dus,
+                                  void* ddt, void* dBp, void* dCp, void* dA, int rows, int L,
+                                  int Dk, int G, int S, int flat, int is_bf16, void* stream) {
+  if (bad_shape(rows, L, Dk, G, S, flat)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_bwd<__nv_bfloat16>(u, dts, Bm, Cm, dy, A, bias, hck, dus, ddt, dBp, dCp,
-                                          dA, rows, L, Dk, K, s)
-              : launch_bwd<float>(u, dts, Bm, Cm, dy, A, bias, hck, dus, ddt, dBp, dCp, dA,
-                                  rows, L, Dk, K, s);
+      is_bf16 ? launch_bwd<__nv_bfloat16>(u, dts, Bm, Cm, dy, A, bias, hck, g0, a0, dus, ddt,
+                                          dBp, dCp, dA, rows, L, Dk, G, S, flat, s)
+              : launch_bwd<float>(u, dts, Bm, Cm, dy, A, bias, hck, g0, a0, dus, ddt, dBp, dCp,
+                                  dA, rows, L, Dk, G, S, flat, s);
+  return static_cast<int>(err);
+}
+
+// H-seg adjoint carry: gout (rows, 16, Dk) fp32, the adjoint at each row's
+// first step from zero incoming.
+extern "C" int selective_scan_adjcarry(const void* dts, const void* Cm, const void* dy,
+                                       const void* A, const void* bias, void* gout, int rows,
+                                       int L, int Dk, int G, int S, int flat, int is_bf16,
+                                       void* stream) {
+  if (bad_shape(rows, L, Dk, G, S, flat)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch_adjcarry<__nv_bfloat16>(dts, Cm, dy, A, bias, gout, rows, L, Dk, G, S,
+                                               flat, s)
+              : launch_adjcarry<float>(dts, Cm, dy, A, bias, gout, rows, L, Dk, G, S, flat, s);
   return static_cast<int>(err);
 }

@@ -1,6 +1,6 @@
 """Model registry of the port (mirrors smow_net_tpu.models.get_model).
 
-SMOW_Net, SMOW_Net_LW and ChangeMamba are ported so far; the other names
+SMOW_Net, SMOW_Net_LW, ChangeMamba and CD-Mamba are ported so far; the other names
 of the JAX registry raise NotImplementedError naming the ROADMAP.md item
 that ports them.
 """
@@ -11,15 +11,14 @@ import torch
 
 __all__ = ["get_model", "list_models"]
 
-_MAMBA = {"cd_mamba": "ROADMAP.md queue 1 step 12a (cd_mamba, kernel H)",
-          "rs_mamba": "ROADMAP.md queue 1 step 12b (rs_mamba, cross_scan8)"}
+_MAMBA = {"rs_mamba": "ROADMAP.md queue 1 step 12b (rs_mamba, cross_scan8)"}
 _ZOO = ("fc_ef", "snunet", "dtcdscn", "ifn", "bit", "pa_former", "afcf3d",
         "seifnet", "tfi_gr", "a2net", "elgcnet", "changeformer", "scratchformer")
 _LATER = {**{n: "ROADMAP.md queue 1 step 11 (non-Mamba zoo)" for n in _ZOO}, **_MAMBA}
 
 
 def list_models():
-    return ["smow_net", "smow_net_lw", "change_mamba"]
+    return ["smow_net", "smow_net_lw", "change_mamba", "cd_mamba"]
 
 
 def get_model(name: str, device="cuda") -> torch.nn.Module:
@@ -42,6 +41,10 @@ def get_model(name: str, device="cuda") -> torch.nn.Module:
         from .change_mamba import ChangeMamba
 
         return ChangeMamba().to(device)
+    if name == "cd_mamba":
+        from .cd_mamba import CDMamba
+
+        return CDMamba().to(device)
     if name in _LATER:
         raise NotImplementedError(f"{name!r} is not ported yet: {_LATER[name]}")
     raise KeyError(f"unknown model {name!r}; available: {list_models()}")

@@ -11,7 +11,8 @@ Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `call` raises on anything but 0. `launches` counts,
 per kernel, the launches made by the op wrappers (ops/warp.py,
 ops/xattn.py, ops/scan.py): a run can read it to show it went through the
-kernels.
+kernels. The selective scan's sweeps over the flat (B, L, G * Cg) layout
+(kernel H) count as `selective_scan_{fwd,ckpt,bwd}_flat`.
 """
 
 from __future__ import annotations
@@ -45,9 +46,11 @@ _SIGNATURES = {
     "grid_sample_bwd": [_P] * 5 + [_I] * 7 + [_P],
     "xattn_layer_fwd": [_P] * 16 + [_I] * 7 + [ctypes.c_float, _P],
     "xattn_layer_bwd": [_P] * 20 + [_I] * 9 + [ctypes.c_float, _P],
-    "selective_scan_fwd": [_P] * 8 + [_I] * 5 + [_P],
-    "selective_scan_ckpt": [_P] * 6 + [_I] * 5 + [_P],
-    "selective_scan_bwd": [_P] * 13 + [_I] * 5 + [_P],
+    "selective_scan_fwd": [_P] * 9 + [_I] * 7 + [_P],
+    "selective_scan_ckpt": [_P] * 7 + [_I] * 7 + [_P],
+    "selective_scan_carry": [_P] * 8 + [_I] * 7 + [_P],
+    "selective_scan_bwd": [_P] * 15 + [_I] * 7 + [_P],
+    "selective_scan_adjcarry": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 launches: collections.Counter = collections.Counter()
@@ -121,11 +124,13 @@ def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def call(name: str, *args) -> None:
-    """Launch C entry `name`, raise on a CUDA error, count the launch."""
+def call(name: str, *args, label: str | None = None) -> None:
+    """Launch C entry `name`, raise on a CUDA error, count the launch under
+    `label` (default: `name`; one entry serving two kernels of the JAX
+    package counts each under its own label)."""
     lib = library()
     rc = getattr(lib, name)(*args)
     if rc != 0:
         msg = lib.smow_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
-    launches[name] += 1
+    launches[label or name] += 1

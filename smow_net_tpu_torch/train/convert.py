@@ -1,7 +1,8 @@
 """JAX variables -> the port's state_dict (the inverse of
 smow_net_tpu/train/convert.py `load_smownet_state_dict` and
 `load_smownet_lw_state_dict`, and of smow_net_tpu/train/convert_zoo.py
-`convert_generic` with zoo_specs' "change_mamba" renames).
+`convert_generic` with zoo_specs' "change_mamba" renames and its
+"cd_mamba" renames and hook).
 
 `variables` is the JAX `{"params", "batch_stats"}` tree as nested dicts of
 numpy arrays. Layout rules, JAX (channels-last) -> torch:
@@ -47,7 +48,7 @@ class _Writer:
     """Writes torch keys from the JAX `params` / `batch_stats` trees."""
 
     def __init__(self, variables):
-        self.params, self.stats = variables["params"], variables["batch_stats"]
+        self.params, self.stats = variables["params"], variables.get("batch_stats", {})
         self.sd: Dict[str, torch.Tensor] = {}
 
     def put(self, key, value):
@@ -255,13 +256,90 @@ def _change_mamba(w: _Writer) -> None:
     walk(w.params, w.stats, ())
 
 
-_MODELS = {"smow_net": _smownet, "smow_net_lw": _smownet_lw, "change_mamba": _change_mamba}
+# flax module path -> torch prefix, applied in order (a copy of
+# smow_net_tpu/train/zoo_specs.py `CDM_STRUCT`)
+_CDM_STRUCT = (
+    (r"^enc0_block0\.", "srcm_encoder_layers.0.1."),
+    (r"^enc(\d)_down\.", r"srcm_encoder_layers.\1.0.0."),
+    (r"^enc(\d)_block(\d)\.",
+     lambda mo: f"srcm_encoder_layers.{mo.group(1)}.{int(mo.group(2)) + 1}."),
+    (r"^dec(\d)_block0\.", r"srcm_decoder_layers.\1.0."),
+    (r"^up(\d)_conv$", r"up_samples.\1.0"),
+    (r"^final_norm$", "conv_final.0"),
+    (r"^conv_final$", "conv_final.2"),
+    (r"\.local_relation\.conv1$", ".local_relation.0"),
+    (r"\.local_relation\.conv2$", ".local_relation.2"),
+    (r"\.local_relation\.dw1$", ".local_relation.0.depthwise_conv"),
+    (r"\.local_relation\.pw1$", ".local_relation.0.pointwise_conv"),
+    (r"\.local_relation\.dw2$", ".local_relation.2.depthwise_conv"),
+    (r"\.local_relation\.pw2$", ".local_relation.2.pointwise_conv"),
+    # the reference misspells the L_GF fusionencoder's local_relation
+    (r"^(l_gf\d\.fusionencoder)\.local_relation\.", r"\1.lcoal_relation."),
+)
+# a Mamba direction's flax module -> the suffix of its leaves on the parent
+_CDM_SUFFIX = {"fwd": "", "bwd": "_b", "g": "_g"}
+_CDM_MAMBA_LEAVES = ("conv1d_kernel", "conv1d_bias", "x_proj_kernel", "dt_proj_kernel",
+                     "dt_proj_bias", "A_log", "D")
+
+
+def _cd_mamba(w: _Writer) -> None:
+    """Walk the flax tree (the inverse of convert_generic with zoo_specs'
+    "cd_mamba" renames and `cdm_hook`): conv and Dense kernels change
+    layout under the renamed module path, norm scales become weights, a
+    Mamba direction's seven leaves land on its parent with the direction's
+    suffix, `ag{i}_kernel` is the gate Linear's weight."""
+
+    def rename(dotted):
+        for pat, rep in _CDM_STRUCT:
+            dotted = re.sub(pat, rep, dotted)
+        return dotted
+
+    def join(prefix, name):
+        return f"{prefix}.{name}" if prefix else name
+
+    def mamba(node, prefix, sfx):
+        w.put(join(prefix, f"conv1d{sfx}.weight"), j2t_conv(node["conv1d_kernel"]))
+        w.put(join(prefix, f"conv1d{sfx}.bias"), node["conv1d_bias"])
+        w.put(join(prefix, f"x_proj{sfx}.weight"), j2t_linear(node["x_proj_kernel"]))
+        w.put(join(prefix, f"dt_proj{sfx}.weight"), j2t_linear(node["dt_proj_kernel"]))
+        w.put(join(prefix, f"dt_proj{sfx}.bias"), node["dt_proj_bias"])
+        w.put(join(prefix, f"A{sfx}_log"), node["A_log"])
+        w.put(join(prefix, f"D{sfx}"), node["D"])
+
+    def walk(node, path):
+        dotted = ".".join(path)
+        bare = "A_log" in node          # a bare Mamba1DCore's own leaves
+        if bare:
+            mamba(node, rename(dotted), "")
+        for leaf, value in node.items():
+            if isinstance(value, dict):
+                if leaf in _CDM_SUFFIX:
+                    mamba(value, rename(dotted), _CDM_SUFFIX[leaf])
+                else:
+                    walk(value, path + (leaf,))
+            elif bare and leaf in _CDM_MAMBA_LEAVES:
+                continue
+            elif leaf == "kernel":
+                w.put(rename(dotted) + ".weight",
+                      j2t_conv(value) if value.ndim == 4 else j2t_linear(value))
+            elif leaf in ("scale", "bias"):
+                w.put(rename(dotted) + (".weight" if leaf == "scale" else ".bias"), value)
+            elif re.fullmatch(r"ag\d_kernel", leaf):
+                w.put(f"{leaf[:3]}.gate.weight", j2t_linear(value))
+            else:
+                w.put(rename(join(dotted, leaf)), value)
+
+    walk(w.params, ())
+
+
+_MODELS = {"smow_net": _smownet, "smow_net_lw": _smownet_lw, "change_mamba": _change_mamba,
+           "cd_mamba": _cd_mamba}
 
 
 def state_dict_from_jax(variables, model: str = "smow_net") -> Dict[str, torch.Tensor]:
-    """The port's state_dict of `model` ("smow_net", "smow_net_lw" or
-    "change_mamba") from the JAX variables; BN running statistics come from
-    `batch_stats`."""
+    """The port's state_dict of `model` ("smow_net", "smow_net_lw",
+    "change_mamba" or "cd_mamba") from the JAX variables; BN running
+    statistics come from `batch_stats`."""
     w = _Writer(variables)
     _MODELS[model](w)
     return w.sd

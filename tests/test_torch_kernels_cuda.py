@@ -1,7 +1,9 @@
 """The port's hand-written CUDA kernels (D, E, C, A-fwd, A-bwd, B, F and
 F-bwd, the layer at D = 128 and 64; the selective scan's I-fwd, I-ckpt and
-I-bwd) against their plain versions, on the card. Marked `cuda`; each test skips when no CUDA device is present (there
-is no interpret mode for a CUDA kernel). On a GPU machine without JAX,
+I-bwd, over the grouped layout (I) and the flat one (H), seeded; H-seg's
+carry and adjoint carry) against their plain versions, on the card. Marked
+`cuda`; each test skips when no CUDA device is present (there is no
+interpret mode for a CUDA kernel). On a GPU machine without JAX,
 skip tests/conftest.py (it configures JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
@@ -377,3 +379,130 @@ def test_scan_kernels_always_take_the_softplus(dev):
     args = _scan_inputs(dev, (1, 4, 32, 16), 23)
     with pytest.raises(ValueError, match="softplus"):
         scan.cross_selective_scan(*args, delta_softplus=False)
+
+
+def _flat_inputs(dev, B, L, G, Cg, seed, dtype=torch.float32):
+    """The flat contract's seven inputs (kernel H's), numpy-seeded: u, delta
+    (B, L, G*Cg), A (G*Cg, 16) = -exp(.), Bmat, Cmat (B, L, G, 16), D,
+    delta_bias (G*Cg); u, delta, Bmat, Cmat in `dtype`."""
+    rng = np.random.default_rng(seed)
+
+    def f(*s, scale=1.0, off=0.0):
+        return torch.from_numpy((rng.normal(size=s) * scale + off).astype(np.float32)).to(dev)
+
+    Dch = G * Cg
+    return [f(B, L, Dch).to(dtype), f(B, L, Dch, scale=0.5).to(dtype),
+            -torch.exp(f(Dch, 16, scale=0.5)), f(B, L, G, 16).to(dtype),
+            f(B, L, G, 16).to(dtype), f(Dch, scale=0.5, off=1.0), f(Dch, scale=0.5, off=-3.0)]
+
+
+FLAT = ("selective_scan_fwd_flat", "selective_scan_ckpt_flat", "selective_scan_bwd_flat")
+SEG = ("selective_scan_carry", "selective_scan_adjcarry")
+
+
+# Cg = 40 leaves an idle tail of the 16-channel blocks; L = 100 a ragged
+# last 16-step chunk; (16, 16384, 2, 64) is one of CD-Mamba's shapes, which
+# the shipped route (`seg_count`) cuts into 16 segments per row
+@pytest.mark.parametrize("B,L,G,Cg", [(2, 256, 2, 32), (2, 100, 1, 40), (16, 16384, 2, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flat_scan_kernels_match_plain(dev, B, L, G, Cg, dtype):
+    """Kernel H: I's three sweeps reading the flat layout in place, the
+    forward and all seven input gradients (bf16: one rounding of the
+    forward; the gradients of the plain version in fp32 on the same bf16
+    values, to 1e-4 and one rounding of the cast); on a segmented route
+    the carry runs in the forward and the backward, the adjcarry in the
+    backward."""
+    args = [a.requires_grad_() for a in _flat_inputs(dev, B, L, G, Cg, 30, dtype)]
+    gy = torch.randn(args[0].shape, device=dev, generator=torch.Generator(dev).manual_seed(31))
+    before = {n: _kernels.launches[n] for n in FLAT + SEG}
+    y = scan.selective_scan(*args, delta_softplus=True)
+    got = torch.autograd.grad(y, args, gy.to(dtype))
+    torch.cuda.synchronize()
+    assert y.dtype == dtype
+    segmented = scan.seg_count(B * G, L, Cg) > 1
+    assert segmented == (L == 16384)
+    runs = {n: _kernels.launches[n] - c for n, c in before.items()}
+    assert runs == {**dict.fromkeys(FLAT, 1), "selective_scan_carry": 2 * segmented,
+                    "selective_scan_adjcarry": int(segmented)}
+    ref = [a.detach().float().requires_grad_() for a in args]
+    want_y = scan.selective_scan_plain(*ref, delta_softplus=True)
+    want = torch.autograd.grad(want_y, ref, gy.to(dtype).float())
+    fp32 = dtype == torch.float32
+    _close(y, want_y, 1e-6, 1e-5 if fp32 else BF16_REL)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-6, 1e-4 if fp32 else BF16_REL)
+
+
+@pytest.mark.parametrize("flat", [True, False], ids=["flat", "grouped"])
+def test_seg_carry_and_adjcarry_kernels_match_plain(dev, flat):
+    """H-seg's carry (final state and dt sum of each segment row from zero)
+    and adjoint carry (the adjoint at each segment row's first step from
+    zero) against their plain versions, fp32, 4 segments of 64 steps."""
+    args = _flat_inputs(dev, 2, 256, 2, 40, 32)
+    if not flat:                        # the same values in the grouped layout
+        args = [args[0].reshape(2, 256, 2, 40).transpose(1, 2),
+                args[1].reshape(2, 256, 2, 40).transpose(1, 2), args[2],
+                args[3].transpose(1, 2), args[4].transpose(1, 2), args[5], args[6]]
+    a = scan._Args(*args, flat=flat)
+    gy = torch.randn(a.u.shape, device=dev, generator=torch.Generator(dev).manual_seed(33))
+    before = {n: _kernels.launches[n] for n in SEG}
+    hend, csum = scan.scan_carry(a, 4)
+    gloc = scan.scan_adjcarry(a, gy, 4)
+    torch.cuda.synchronize()
+    assert all(_kernels.launches[n] == c + 1 for n, c in before.items())
+    hend_p, csum_p = scan.scan_carry_plain(a, 4)
+    _close(hend, hend_p, 1e-6, 1e-5)
+    _close(csum, csum_p, 1e-6, 1e-5)
+    _close(gloc, scan.scan_adjcarry_plain(a, gy, 4), 1e-6, 1e-5)
+
+
+def test_seeded_sweeps_match_plain(dev):
+    """I-fwd, I-ckpt and I-bwd seeded with a state h0, an adjoint g0 and a
+    decay a0 per segment row, on 4 segment rows of the flat layout, against
+    the plain seeded scan and its autograd."""
+    args = _flat_inputs(dev, 2, 256, 2, 40, 34)
+    a = scan._Args(*args, flat=True)
+    g = torch.Generator(dev).manual_seed(35)
+    h0, g0 = (torch.randn(a.rows * 4, 16, 40, device=dev, generator=g) for _ in range(2))
+    a0 = torch.rand(a.rows * 4, 16, 40, device=dev, generator=g)
+    gy = torch.randn(a.u.shape, device=dev, generator=g)
+    y = scan._scan_fwd(a, 4, h0)
+    sweeps = scan._scan_bwd(a, gy, scan._scan_ckpt(a, 4, h0), 4, g0, a0)
+    torch.cuda.synchronize()
+    _close(y, scan.scan_fwd_plain(a, 4, h0), 1e-6, 1e-5)
+    for got, want in zip(sweeps, scan.scan_bwd_plain(a, gy, 4, h0, g0, a0)):
+        _close(got, want, 1e-6, 1e-4)
+
+
+@pytest.mark.parametrize("S", [2, 8])
+def test_segmented_scan_matches_sequential(dev, S):
+    """The segmented orchestration on the kernels against the sequential
+    kernels and the plain scan: the forward and the sweeps' gradients."""
+    args = _flat_inputs(dev, 2, 1024, 2, 32, 36)
+    a = scan._Args(*args, flat=True)
+    gy = torch.randn(a.u.shape, device=dev, generator=torch.Generator(dev).manual_seed(37))
+    before = {n: _kernels.launches[n] for n in SEG}
+    y = scan._fwd_segmented(a, S)
+    got = scan._bwd_segmented(a, gy, S)
+    torch.cuda.synchronize()
+    assert _kernels.launches["selective_scan_carry"] == before["selective_scan_carry"] + 2
+    assert _kernels.launches["selective_scan_adjcarry"] == before["selective_scan_adjcarry"] + 1
+    _close(y, scan._scan_fwd(a), 1e-6, 1e-5)
+    _close(y, scan.selective_scan_plain(*args, delta_softplus=True), 1e-6, 1e-5)
+    seq = scan._scan_bwd(a, gy, scan._scan_ckpt(a))
+    seq = seq[:4] + (seq[4].reshape(a.rows, 1, 16, 32).sum(1),)
+    for g, w in zip(got, seq):
+        _close(g, w, 1e-6, 1e-4)
+
+
+def test_flat_scan_raises_on_what_the_kernels_do_not_take(dev):
+    args = _flat_inputs(dev, 1, 32, 2, 16, 38)
+    with pytest.raises(ValueError, match="softplus"):
+        scan.selective_scan(*args, delta_softplus=False)
+    small = args[:3] + [args[3][..., :8], args[4][..., :8]] + args[5:]
+    small[2] = small[2][:, :8]
+    with pytest.raises(ValueError):                     # N = 8
+        scan.selective_scan(*small, delta_softplus=True)
+    big = _flat_inputs(dev, 32768, 16, 2, 16, 39)      # 65536 rows
+    with pytest.raises(ValueError, match="65535"):
+        scan.selective_scan(*big, delta_softplus=True)

@@ -128,6 +128,10 @@ def test_port_imports_no_jax():
         "with torch.inference_mode():\n"
         "    y = cm(x[..., :32, :32], x[..., :32, :32].flip(-1))\n"
         "assert y.shape == (1, 2, 32, 32) and bool(torch.isfinite(y).all())\n"
+        "cd = get_model('cd_mamba', device='cpu').eval()\n"
+        "with torch.inference_mode():\n"
+        "    y = cd(x[..., :32, :32], x[..., :32, :32].flip(-1))\n"
+        "assert y.shape == (1, 2, 32, 32) and bool(torch.isfinite(y).all())\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'flax', 'smow_net_tpu')]\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
