@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Drive the PyTorch/CUDA port of SMOW_Net, SMOW_Net_LW, ChangeMamba and
-CD-Mamba on one NVIDIA GPU and check it.
+CD-Mamba, and its general selective scan, on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
 
@@ -17,8 +17,17 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      plain versions, fp32 and bf16, at (32, 128, 128, 8) (SMOW_Net_LW's
      token chain), with border-clamped flows, and C = 16
   3d. the unfused token chain's VJP (da, dflow), kernel path vs plain path,
-     fp32; then the hybrid and the unfused chain timed, forward plus
-     backward, bf16 at (32, 128, 128, 8)
+     fp32; then the hybrid, the unfused and the fused chain timed, forward
+     plus backward, bf16 at (32, 128, 128, 8), in turns
+  3e. kernel D-bwd (`token_scatter_bwd`, the fused chain's backward) vs its
+     plain version at (32, 128, 128, 8) (and a spread > 87, and C = 16),
+     fp32 and bf16, one launch per call; then the fused chain's whole VJP
+     (da, dflow), kernel path (D, D-bwd) vs plain path, fp32
+  3f. kernels A-fwd, B, C and A-bwd in the four (padding_mode,
+     align_corners) pairs at (32, 128, 128, C), C = 8 and 32, fp32
+  3g. the reference's unfused OFW route, TokenTransformerEncoder(OFW(x))
+     (A-fwd and A-bwd at C = 32), vs the fused route SMOWNet runs, on
+     (16, 32, 2, 128, 128) features with numpy-seeded weights, fp32
   4. kernel F (decoder layer) vs its plain version: (16, 16384, D), h = 8,
      M = 8, hidden 2D, with and without the lane permutation, at D = 128
      (SMOW_Net) and D = 64 (SMOW_Net_LW), and the ragged N = 1000
@@ -43,6 +52,11 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      (its table beside phase 5's)
   8. whole-model fp32 train gradients (TF32 off), kernel path vs plain
      path, batch 2 at 256^2
+  8b. SMOW_Net's train step on the fused token chain
+     (`token_train_chain="fused"`): D, D-bwd, F and F-bwd once per step, no
+     other kernel; then the whole bf16 step on the hybrid, the unfused and
+     the fused chain, 2 rounds in turns
+  8c. phase 8 on the fused chain (D and D-bwd on the kernel path)
   9-12. phases 5-8 for get_model("smow_net_lw"): the eval step (D and F at
      D = 64 once per batch), the fp32 model, the train step (A-fwd, B, C,
      A-bwd, F and F-bwd at D = 64 once per step, D and E never) and its
@@ -106,7 +120,14 @@ Phases (any failure raises and exits non-zero; no result line is printed):
   23. phase 7 for CD-Mamba: the train step at 16 x 256^2, H-fwd, H-ckpt and
      H-bwd 33 times per step (and, per segmented call, the carry twice and
      the adjcarry once), no other kernel; the kernel path's rounds alone
-  24. the kernels' JSON line, the card's line, then the result line last
+  24. kernel J (`scan_states`) and the general route (`_StatesScan`) vs
+     `selective_scan_plain`: N in {1, 4, 8, 16, 32}, softplus on and off,
+     fp32 y and all seven gradients; the calls kernels H and I refuse (N !=
+     16, no softplus, fp16, float64) through both contracts; J alone at
+     (B, 62500, 1024) fp32; the A/B of J's route against H at L = 62500,
+     Dch 64, G 2, N 16, forward and forward + backward, bf16; H and I at
+     70000 rows, forward and backward
+  25. the kernels' JSON line, the card's line, then the result line last
 
 Bounds: fp32 kernels against fp32 plain versions differ only in summation
 order (atomics in D, E, A-bwd and B, a different reduction order in A-fwd,
@@ -288,12 +309,12 @@ def device_events(averages):
 def plain_ops():
     """Route the model's kernel ops through their plain versions (for timing
     and the fp32 comparisons only; the model never does this): the token
-    chains' five ops, the decoder layer and the two selective scans, whose
+    chains' six ops, the decoder layer and the two selective scans, whose
     plain versions then run under torch autograd."""
     from smow_net_tpu_torch.ops import scan, warp, xattn
 
-    names = ("token_scatter", "grid_sample_t_vjp", "grid_sample_bwd", "grid_sample",
-             "grid_sample_transpose")
+    names = ("token_scatter", "token_scatter_bwd", "grid_sample_t_vjp", "grid_sample_bwd",
+             "grid_sample", "grid_sample_transpose")
     saved = ([getattr(warp, n) for n in names], xattn.cross_layer_head1,
              scan.cross_selective_scan, scan.selective_scan)
     for n in names:
@@ -607,7 +628,8 @@ def phase_warps(dev) -> dict:
 
 def phase_unfused_chain(dev) -> None:
     """The unfused token chain's VJP on the kernel path against the plain
-    path; then the two train chains timed at SMOW_Net_LW's shape."""
+    path; then the three train chains timed at SMOW_Net's and SMOW_Net_LW's
+    shape."""
     from smow_net_tpu_torch.ops import _kernels, warp
 
     log("phase 3d: unfused token chain VJP, fp32: kernel path (A-fwd, B, C, A-bwd) vs "
@@ -633,7 +655,7 @@ def phase_unfused_chain(dev) -> None:
     a, flow, _, r, s = _token_inputs(dev, (32, 128, 128, 8), 34)
     a, r, s = a.to(torch.bfloat16), r.to(torch.bfloat16), s.to(torch.bfloat16)
     times = {}
-    for chain in ("hybrid", "unfused", "hybrid", "unfused"):
+    for chain in ("hybrid", "unfused", "fused", "fused", "unfused", "hybrid"):
         def fwd_bwd():
             at, ft = a.clone().requires_grad_(), flow.clone().requires_grad_()
             ew, zaw = warp.token_softmax_scatter(at, ft, train_chain=chain)
@@ -643,6 +665,153 @@ def phase_unfused_chain(dev) -> None:
     log("  (finding) train chain forward + backward, bf16 (32, 128, 128, 8), CUDA events "
         "over 20 calls, in turns: "
         + ", ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms" for k, v in times.items()))
+
+
+def phase_token_bwd(dev) -> dict:
+    """Kernel D-bwd against its plain version, and the fused chain's whole
+    VJP on the kernel path against the plain path; then D-bwd's time."""
+    from smow_net_tpu_torch.ops import _kernels, warp
+
+    log("phase 3e: kernel D-bwd token_scatter_bwd vs token_scatter_bwd_plain (fp32: da and the "
+        "summed weight rows to 1e-4 of the largest element, atomics order and two gathers' "
+        "sums; bf16: one bf16 rounding of the plain version in fp32 on the same inputs)")
+    result = {}
+
+    def case(label, shape, spike=False):
+        a, _, grid, r, s = _token_inputs(dev, shape, 35, spike)
+        for dt in (torch.float32, torch.bfloat16):
+            x, ew_bar = a.to(dt), r.to(dt)
+            m = x.amax(dim=(1, 2)).float()
+            before = _kernels.launches["token_scatter_bwd"]
+            da, dw = warp.token_scatter_bwd(x, grid, m, ew_bar, s)
+            torch.cuda.synchronize()
+            require(_kernels.launches["token_scatter_bwd"] == before + 1,
+                    "D-bwd launched once per call")
+            da_p, dw_p = warp.token_scatter_bwd_plain(x.float(), grid, m, ew_bar.float(), s)
+            name = f"D-bwd {label} {str(dt)[6:]}"
+            fp32 = dt == torch.float32
+            err = max(check(f"{name} da", da, da_p, 1e-6, 1e-4 if fp32 else BF16_REL),
+                      check(f"{name} dw", dw, dw_p, 1e-6, 1e-4),
+                      check(f"{name} dgrid", warp.corner_weights_vjp(grid, dw, *shape[1:3]),
+                            warp.corner_weights_vjp(grid, dw_p, *shape[1:3]), 1e-6, 1e-4))
+            if spike:
+                require(bool((da[..., 0] == 0).all()),
+                        "large-spread case: eaw, daw and da of the spiked channel must be 0")
+            if label == "slice" and dt == torch.bfloat16:
+                call = lambda: warp.token_scatter_bwd(x, grid, m, ew_bar, s)
+                result.update(max_abs_err=err, library_ms=None, ms=graph_ms(call),
+                              plain_ms=graph_ms(lambda: warp.token_scatter_bwd_plain(
+                                  x, grid, m, ew_bar, s)),
+                              **bound(nbytes(x, grid, m, ew_bar, s, da, dw), 40 * x.numel()))
+                log(f"  slice bf16 time: kernel {result['ms']:.4f} ms, plain "
+                    f"{result['plain_ms']:.4f} ms, bound {result['bound_ms']:.4f} ms (CUDA "
+                    f"graph); kernel alone {kernel_only_ms(call, 'token_scatter_bwd'):.4f} ms "
+                    "(profiler)")
+
+    case("slice", (32, 128, 128, 8))
+    case("spread>87", (32, 128, 128, 8), spike=True)
+    case("W*C=2048", (32, 128, 128, 16))
+
+    log("  fused token_softmax_scatter VJP, fp32: kernel path (D, D-bwd) vs plain path (bound "
+        "1e-4 of the largest element, as phase 3b)")
+    for label, spike in (("slice", False), ("spread>87", True)):
+        a, flow, _, r, s = _token_inputs(dev, (32, 128, 128, 8), 36, spike)
+
+        def grads():
+            at, ft = a.clone().requires_grad_(), flow.clone().requires_grad_()
+            ew, zaw = warp.token_softmax_scatter(at, ft, train_chain="fused")
+            return torch.autograd.grad((ew * r).sum() + (zaw * s).sum(), (at, ft))
+
+        before = dict(_kernels.launches)
+        got = grads()
+        runs = {n: c - before.get(n, 0) for n, c in _kernels.launches.items()
+                if c != before.get(n, 0)}
+        require(runs == {"token_scatter_fwd": 1, "token_scatter_bwd": 1},
+                f"the fused chain runs D and D-bwd once each: {runs}")
+        with plain_ops():
+            want = grads()
+        for part, g, w in zip(("da", "dflow"), got, want):
+            check(f"{label} {part}", g, w, 1e-6, 1e-4)
+    return result
+
+
+WARP_MODES = (("border", True), ("border", False), ("zeros", True), ("zeros", False))
+
+
+def phase_warp_modes(dev) -> None:
+    """Kernels A-fwd, B, C and A-bwd in each (padding_mode, align_corners)
+    pair at C = 8 and 32 against their plain versions, fp32."""
+    from smow_net_tpu_torch.ops import _kernels, warp
+
+    log("phase 3f: kernels A-fwd, B, C, A-bwd in the four (padding_mode, align_corners) pairs "
+        "at (32, 128, 128, C), C = 8 and 32, fp32, on grids reaching beyond [-1, 1] (outputs "
+        "1e-5 of the largest element, weight rows and dgrid 1e-4)")
+    names = ("grid_sample_fwd", "grid_sample_transpose", "grid_sample_t_vjp", "grid_sample_bwd")
+    for C in (8, 32):
+        g = torch.Generator(dev).manual_seed(60 + C)
+        x = torch.randn(32, 128, 128, C, device=dev, generator=g)
+        other = torch.randn(32, 128, 128, C, device=dev, generator=g)
+        grid = torch.rand(32, 128, 128, 2, device=dev, generator=g) * 2.4 - 1.2
+        hw = (128, 128)
+        for mode in WARP_MODES:
+            before = {n: _kernels.launches[n] for n in names}
+            got = (warp.grid_sample(x, grid, *mode),
+                   warp.grid_sample_transpose(other, grid, hw, *mode),
+                   warp.grid_sample_t_vjp(x, other, grid, *mode),
+                   warp.grid_sample_bwd(x, other, grid, *mode))
+            torch.cuda.synchronize()
+            require(all(_kernels.launches[n] == before[n] + 1 for n in names),
+                    "each warp kernel launched once per mode")
+            want = (warp.grid_sample_plain(x, grid, *mode),
+                    warp.grid_sample_transpose_plain(other, grid, hw, *mode),
+                    warp.grid_sample_t_vjp_plain(x, other, grid, *mode),
+                    warp.grid_sample_bwd_plain(x, other, grid, *mode))
+            label = f"C={C} {mode[0]} align={mode[1]}"
+            check(f"A-fwd {label}", got[0], want[0], 0.0, 1e-5)
+            check(f"B {label}", got[1], want[1], 0.0, 1e-5)
+            for kname, (o, dw), (o_p, dw_p) in (("C", got[2], want[2]),
+                                                ("A-bwd", got[3], want[3])):
+                check(f"{kname} {label} out", o, o_p, 0.0, 1e-5)
+                check(f"{kname} {label} dw", dw, dw_p, 0.0, 1e-4)
+                check(f"{kname} {label} dgrid", warp.corner_weights_vjp(grid, dw, *hw, *mode),
+                      warp.corner_weights_vjp(grid, dw_p, *hw, *mode), 0.0, 1e-4)
+        del x, other, grid, got, want
+
+
+def phase_ofw_route(dev) -> None:
+    """The reference's unfused OFW token route (OFW.forward, A-fwd and
+    A-bwd at C = 32) against the fused one SMOWNet runs, on SMOW_Net's
+    (16, 32, 2, 128, 128) features with numpy-seeded weights, fp32."""
+    from smow_net_tpu_torch.models import get_model
+    from smow_net_tpu_torch.models.smow_net import ofw_tokens_fused
+    from smow_net_tpu_torch.ops import _kernels
+
+    log("phase 3g: TokenTransformerEncoder(OFW(x)) (A-fwd, A-bwd at C = 32) vs "
+        "ofw_tokens_fused (D; E, C, A-bwd at C = 8) at (16, 32, 2, 128, 128), fp32, eval-mode "
+        "BN: the tokens and the features' gradient to 1e-4 of the largest element (two routes "
+        "that sum over 16384 pixels in other orders)")
+    model = get_model("smow_net")
+    model.load_state_dict(seeded_state_dict(model, 0))
+    ofw, tok = model.OFW.eval(), model.Transformer_Encoder
+    rng = np.random.default_rng(13)
+    x0 = torch.from_numpy(rng.normal(size=(16, 32, 2, 128, 128)).astype(np.float32)).to(dev)
+    r = torch.from_numpy(rng.normal(size=(16, 8, 128)).astype(np.float32)).to(dev)
+
+    def run(route):
+        x = x0.clone().requires_grad_()
+        out = route(x)
+        return out.detach(), torch.autograd.grad((out * r).sum(), x)[0]
+
+    before = dict(_kernels.launches)
+    got, dx = run(lambda x: tok(ofw(x)))
+    runs = {n: c - before.get(n, 0) for n, c in _kernels.launches.items()
+            if c != before.get(n, 0)}
+    require(runs == {"grid_sample_fwd": 1, "grid_sample_bwd": 1},
+            f"OFW.forward's warp runs A-fwd and A-bwd once each at C = 32: {runs}")
+    want, dx_f = run(lambda x: ofw_tokens_fused(ofw, tok, x))
+    check("tokens, OFW route vs fused route", got, want, 0.0, 1e-4)
+    check("dx, OFW route vs fused route", dx, dx_f, 0.0, 1e-4)
+    del model, x0, dx, dx_f
 
 
 def _layer_args(dev, B, N, D=128, h=8, M=8, hid=256, seed=4):
@@ -1275,6 +1444,160 @@ def phase_seg_scan(dev, rate: float) -> dict:
     return results
 
 
+def _states_args(dev, B, L, G, Cg, N, softplus, seed, dtype=torch.float32):
+    """The flat contract's inputs at any N, numpy-seeded as `_flat_args`;
+    without the softplus dt >= 0 is passed as delta (the softplus taken
+    here) with a zero bias, as such a call's caller gives it."""
+    rng = np.random.default_rng(seed)
+
+    def f(*s, scale=1.0, off=0.0):
+        return torch.from_numpy((rng.normal(size=s) * scale + off).astype(np.float32)).to(dev)
+
+    Dch = G * Cg
+    A = -torch.exp(torch.log(torch.arange(1, N + 1, device=dev, dtype=torch.float32))
+                   + f(Dch, N, scale=0.1))
+    bias = torch.from_numpy(rng.uniform(np.log(1e-3), np.log(0.1), Dch).astype(np.float32)).to(dev)
+    delta = f(B, L, Dch)
+    if not softplus:
+        from smow_net_tpu_torch.ops import scan
+
+        delta, bias = scan.softplus(delta + bias), torch.zeros_like(bias)
+    return [f(B, L, Dch).to(dtype), delta.to(dtype), A, f(B, L, G, N).to(dtype),
+            f(B, L, G, N).to(dtype), f(Dch, scale=0.1, off=1.0), bias]
+
+
+def phase_scan_states(dev) -> tuple:
+    """Kernel J and the general route (`_StatesScan`) against their plain
+    versions; the A/B of J against H at the odd-L shape JAX's router sends
+    to J; the kernels H and I past 65535 rows."""
+    from smow_net_tpu_torch.ops import _kernels, scan
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 24: the general selective-scan route (_StatesScan: kernel J once forward, twice "
+        "backward) vs selective_scan_plain, (B, L, G, Cg) = (4, 2048, 2, 32), N in {1, 4, 8, "
+        "16, 32}, softplus on and off (fp32: y 1e-5, the seven gradients 1e-4 of each largest "
+        "element; bf16, fp16: y to one rounding; float64: y to 1e-5)")
+    _kernels.launches.clear()
+    for N in (1, 4, 8, 16, 32):
+        for softplus in (True, False):
+            args = [a.requires_grad_() for a in _states_args(dev, 4, 2048, 2, 32, N, softplus,
+                                                               70 + N)]
+            gy = torch.randn(args[0].shape, device=dev,
+                             generator=torch.Generator(dev).manual_seed(71))
+            before = _kernels.launches["scan_states"]
+            y = scan._StatesScan.apply(*args, softplus)
+            got = torch.autograd.grad(y, args, gy)
+            require(_kernels.launches["scan_states"] == before + 3,
+                    "the general route runs J once forward and twice backward")
+            want_y = scan.selective_scan_plain(*args, delta_softplus=softplus)
+            want = torch.autograd.grad(want_y, args, gy)
+            label = f"J route N={N} softplus={softplus}"
+            check(f"{label} y", y, want_y, 0.0, 1e-5)
+            for n, g, w in zip(FLAT_NAMES, got, want):
+                check(f"{label} d{n}", g, w, 0.0, 1e-4)
+    # the calls kernels H and I refuse reach J through both contracts
+    for N, softplus, dt in ((8, True, torch.float32), (16, False, torch.float32),
+                            (16, True, torch.float16), (16, True, torch.float64),
+                            (32, True, torch.bfloat16)):
+        args = _states_args(dev, 4, 2048, 2, 32, N, softplus, 72, dt)
+        before = dict(_kernels.launches)
+        with torch.no_grad():
+            y = scan.selective_scan(*args, delta_softplus=softplus)
+            B, L, Dch = args[0].shape
+            grouped = [args[0].reshape(B, L, 2, 32).transpose(1, 2), args[1].reshape(
+                B, L, 2, 32).transpose(1, 2), args[2], args[3].transpose(1, 2),
+                args[4].transpose(1, 2), args[5], args[6]]
+            yg = scan.cross_selective_scan(*grouped, delta_softplus=softplus)
+            want = scan.selective_scan_plain(*[a.float() for a in args], delta_softplus=softplus)
+        runs = {n: c - before.get(n, 0) for n, c in _kernels.launches.items()
+                if c != before.get(n, 0)}
+        require(runs == {"scan_states": 2} and y.dtype == dt,
+                f"N={N} softplus={softplus} {dt}: both contracts take the general route: {runs}")
+        rel = {torch.float32: 1e-5, torch.float64: 1e-5, torch.bfloat16: BF16_REL,
+               torch.float16: 2.0 ** -11}[dt]
+        label = f"routed N={N} softplus={softplus} {str(dt)[6:]}"
+        check(f"{label} y (flat)", y, want, 0.0, rel)
+        check(f"{label} y (grouped)", yg.transpose(1, 2).reshape(B, L, Dch), want, 0.0, rel)
+    launches = _kernels.launches["scan_states"]
+    log(f"  kernel J launched {launches} times in this phase's route checks")
+
+    # kernel J at the shape of the A/B below: its time, bound and error
+    L, G, Cg, N = 62500, 2, 32, 16
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    per_row = L * G * Cg * N * 4                # one fp32 (1, L, D, N) tensor
+    B = max(1, min(16, int(0.5 * free / (12 * per_row))))
+    log(f"  J vs H at L = {L} (= 250^2, the shape JAX's route_scan_impl names), Dch {G * Cg}, G "
+        f"{G}, N {N}: batch {B} (half of the {free / 2 ** 30:.1f} GiB free over ~12 fp32 "
+        "(B, L, D, N) tensors of the general route's backward)")
+    g = torch.Generator(dev).manual_seed(73)
+    dA = torch.exp(-torch.rand(B, L, G * Cg * N, device=dev, generator=g) * 0.1)
+    dBu = torch.randn(B, L, G * Cg * N, device=dev, generator=g)
+    h = scan.scan_states(dA, dBu)
+    h_p = scan.scan_states_plain(dA, dBu)
+    err = check(f"J ({B}, {L}, {G * Cg * N}) fp32 states", h, h_p, 0.0, 1e-5)
+    del h, h_p
+    result = dict(max_abs_err=err, library_ms=None,
+                  ms=cuda_ms(lambda: scan.scan_states(dA, dBu), iters=5, warmup=1),
+                  plain_ms=cuda_ms(lambda: scan.scan_states_plain(dA, dBu), iters=1, warmup=1),
+                  **bound(3 * dA.numel() * 4, 2 * dA.numel()))
+    log(f"  J alone, fp32 ({B}, {L}, {G * Cg * N}): kernel {result['ms']:.4f} ms, plain "
+        f"{result['plain_ms']:.4f} ms, bound {result['bound_ms']:.4f} ms ({result['bound_by']}: "
+        "12 bytes per element)")
+    del dA, dBu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the A/B: H (the shipped route, seg_count's segments) against the
+    # general route on the same bf16 inputs, forward and forward + backward
+    args = _flat_args(dev, B, L, G, Cg, 74, torch.bfloat16)
+    gy = torch.randn(args[0].shape, device=dev, generator=g).to(torch.bfloat16)
+    ref = [a.detach().requires_grad_() for a in args]
+    routes = {"H": lambda *a: scan._FlatScan.apply(*a),
+              "J": lambda *a: scan._StatesScan.apply(*a, True)}
+    times = {(k, part): [] for k in routes for part in ("fwd", "fwd+bwd")}
+    for k in ("H", "J", "J", "H"):
+        fn = routes[k]
+        with torch.no_grad():
+            times[(k, "fwd")].append(cuda_ms(lambda: fn(*args), iters=3, warmup=1))
+        times[(k, "fwd+bwd")].append(cuda_ms(lambda: torch.autograd.grad(fn(*ref), ref, gy),
+                                             iters=2, warmup=1))
+    S = scan.seg_count(B * G, L, Cg)
+    for (k, part), row in times.items():
+        log(f"  (finding) {part} {k}{f' (S = {S})' if k == 'H' else ''}: "
+            + " / ".join(f"{t:.4f}" for t in row) + " ms")
+    del args, ref, gy
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("  H and I past 65535 rows: (B, L, G, Cg) = (35000, 16, 2, 16) flat and (B, K, L, Dk) = "
+        "(17500, 4, 16, 16) grouped, 70000 rows of 16 steps, forward and backward vs the plain "
+        "version, fp32 (y 1e-5, the gradients 1e-4)")
+    for flat in (True, False):
+        args = (_flat_args(dev, 35000, 16, 2, 16, 75) if flat
+                else _scan_args(dev, (17500, 4, 16, 16), 76))
+        fn, plain = ((scan.selective_scan, scan.selective_scan_plain) if flat
+                     else (scan.cross_selective_scan, scan.cross_selective_scan_plain))
+        args = [a.requires_grad_() for a in args]
+        gy = torch.randn(args[0].shape, device=dev, generator=g)
+        before = dict(_kernels.launches)
+        y = fn(*args, delta_softplus=True)
+        got = torch.autograd.grad(y, args, gy)
+        names = FLAT_KERNELS if flat else SCAN_KERNELS
+        require(all(_kernels.launches[n] == before.get(n, 0) + 1 for n in names),
+                f"{names} each launched once at 70000 rows")
+        want_y = plain(*args, delta_softplus=True)
+        want = torch.autograd.grad(want_y, args, gy)
+        label = "H flat" if flat else "I grouped"
+        check(f"{label} 70000 rows y", y, want_y, 0.0, 1e-5)
+        for n, gr, w in zip(FLAT_NAMES, got, want):
+            check(f"{label} 70000 rows d{n}", gr, w, 0.0, 1e-4)
+        del args, got, want, y, want_y
+    return launches, result
+
+
 def seeded_state_dict(model: torch.nn.Module, seed: int) -> dict:
     """Numpy-seeded values for every parameter and buffer: fan-in scaled
     weights (the zero/identity-initialised temporal mixers included, so every
@@ -1675,6 +1998,66 @@ def phase_train(dev, name: str, phase: int, rounds: int, per_round: int = 5,
     return launches
 
 
+FUSED_TRAIN_KERNELS = dict.fromkeys(("token_scatter_fwd", "token_scatter_bwd", "xattn_layer_fwd",
+                                     "xattn_layer_bwd"), 1)
+
+
+def phase_token_chains(dev, rounds: int = 2, per_round: int = 5) -> dict:
+    """SMOW_Net's bf16 train step at 16 x 256^2 on the fused token chain
+    (D forward, D-bwd backward), launches counted; then the whole step on
+    each of the three chains in turns."""
+    from smow_net_tpu_torch.ops import _kernels
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 8b: SMOW_Net train step on the fused token chain (token_train_chain='fused'), "
+        f"bf16 compute over fp32 masters, one repeated batch of 16 x 256^2; then the three "
+        f"chains' whole steps in turns ({rounds} rounds x {per_round} steps)")
+    steps = 3
+    model, state, step = _train_setup("smow_net", torch.bfloat16, steps)
+    batch = make_batches(dev, 1, 16, 256, seed=8)[0]
+    model.token_train_chain = "fused"
+    torch.cuda.synchronize()
+    _kernels.launches.clear()
+    losses = []
+    for i in range(steps):
+        losses.append(float(step(state, batch)))
+        counts = dict(_kernels.launches)
+        require(counts == {n: k * (i + 1) for n, k in FUSED_TRAIN_KERNELS.items()},
+                f"launch counts {counts} after train step {i + 1} on the fused chain: per step "
+                f"{FUSED_TRAIN_KERNELS}, no other kernel")
+    launches = dict(_kernels.launches)
+    log(f"  losses {losses}; launches {launches}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"the loss must be finite and fall on a repeated batch: {losses}")
+
+    def round_ms():
+        step(state, batch)
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(per_round):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        return float(np.median(out))
+
+    chains = ("hybrid", "unfused", "fused")
+    table = {c: [] for c in chains}
+    for r in range(rounds):
+        for chain in (chains if r % 2 == 0 else chains[::-1]):
+            model.token_train_chain = chain
+            table[chain].append(round_ms())
+    for chain, row in table.items():
+        log(f"  (finding) SMOW_Net train step, chain {chain}: median ms/step per round "
+            + " / ".join(f"{t:.3f}" for t in row))
+    model.token_train_chain = None
+    del model, state, step
+    return launches
+
+
 def leaf_errors(want: dict, got: dict) -> list:
     """(max |got - want| / the leaf's largest |want|, name), worst first;
     leaves whose gradient is zero in exact arithmetic (a conv bias right
@@ -1688,16 +2071,16 @@ def leaf_errors(want: dict, got: dict) -> list:
     return sorted(rows, reverse=True)
 
 
-def phase_fp32_train_grads(dev, name: str, phase: int) -> None:
+def phase_fp32_train_grads(dev, name: str, phase, **model_kwargs) -> None:
     from smow_net_tpu_torch.models import get_model
     from smow_net_tpu_torch.nn.ssm import DropPath
     from smow_net_tpu_torch.train.loss import bce_dice_loss
     from smow_net_tpu_torch.train.trainer import select_pred
 
-    log(f"phase {phase}: whole-model {name} fp32 train gradients (TF32 off, deterministic "
-        "cuDNN), kernel path vs plain path (the Mamba models: the plain scan's backward on the "
-        "kernel's values), batch 2, 256^2")
-    model = get_model(name)
+    log(f"phase {phase}: whole-model {name} {model_kwargs or ''} fp32 train gradients (TF32 "
+        "off, deterministic cuDNN), kernel path vs plain path (the Mamba models: the plain "
+        "scan's backward on the kernel's values), batch 2, 256^2")
+    model = get_model(name, **model_kwargs)
     model.load_state_dict(seeded_state_dict(model, 0))
     model.train()
     batch = make_batches(dev, 1, 2, 256, seed=12)[0]
@@ -1814,12 +2197,21 @@ def main() -> None:
     tok = phase_token_backward(dev)
     warps = phase_warps(dev)
     phase_unfused_chain(dev)
+    dbwd = phase_token_bwd(dev)
+    phase_warp_modes(dev)
+    phase_ofw_route(dev)
     f = {D: phase_kernel_f(dev, D) for D in (128, 64)}
     fb = {D: phase_kernel_f_bwd(dev, D) for D in (128, 64)}
     launches = phase_main_path(dev, "smow_net", 5, rounds=4)
     phase_fp32_model(dev, "smow_net", 6)
     train_launches = phase_train(dev, "smow_net", 7, rounds=2)
     phase_fp32_train_grads(dev, "smow_net", 8)
+    fused_launches = phase_token_chains(dev)
+    before = dict(_kernels.launches)
+    phase_fp32_train_grads(dev, "smow_net", "8c", token_train_chain="fused")
+    runs = {n: c - before.get(n, 0) for n, c in _kernels.launches.items() if c != before.get(n, 0)}
+    require(runs == FUSED_TRAIN_KERNELS, f"phase 8c's kernel path ran D, D-bwd, F, F-bwd once "
+            f"each: {runs}")
     lw_launches = phase_main_path(dev, "smow_net_lw", 9, rounds=4)
     phase_fp32_model(dev, "smow_net_lw", 10)
     lw_train_launches = phase_train(dev, "smow_net_lw", 11, rounds=2)
@@ -1849,8 +2241,9 @@ def main() -> None:
     cdm_train = phase_train(dev, "cd_mamba", 23, rounds=2, per_round=2, plain=False)
     require(all(cdm_train.get(n, 0) > 0 for n in SEG_KERNELS),
             "CD-Mamba's train step launched the carry and adjcarry kernels")
+    j_launches, j = phase_scan_states(dev)
 
-    log("phase 24: results (launches: D and F at D = 128 from SMOW_Net's eval path (phase "
+    log("phase 25: results (launches: D and F at D = 128 from SMOW_Net's eval path (phase "
         "5), E, C, A-bwd and F-bwd at D = 128 from its train step (phase 7), A-fwd and B "
         "from SMOW_Net_LW's train step (phase 11), F and F-bwd at D = 64 from SMOW_Net_LW's "
         "eval path (phase 9) and train step (phase 11), I-fwd from ChangeMamba's eval path "
@@ -1861,7 +2254,9 @@ def main() -> None:
         f"SMOW_Net_LW's ran C {lw_train_launches['grid_sample_t_vjp']} and A-bwd "
         f"{lw_train_launches['grid_sample_bwd']} times, ChangeMamba's I-fwd "
         f"{cm_train_launches['selective_scan_fwd']} times, CD-Mamba's H-fwd "
-        f"{cdm_train['selective_scan_fwd_flat']} times)")
+        f"{cdm_train['selective_scan_fwd_flat']} times; D-bwd from SMOW_Net's train step on "
+        f"the fused chain (phase 8b, 3 steps), J from the general route's checks (phase 24), "
+        "an op path: no model has N != 16 or the softplus off)")
     csrc, pallas = "smow_net_tpu_torch/csrc/", "smow_net_tpu/ops/pallas/"
 
     def row(name, source, replaces, launch_count, numbers, **extra):
@@ -1905,7 +2300,11 @@ def main() -> None:
             cdm_train["selective_scan_carry"], seg["selective_scan_carry"]),
         row("selective_scan_adjcarry", "selective_scan.cu", "scan_fused.py:223",
             cdm_train["selective_scan_adjcarry"], seg["selective_scan_adjcarry"]),
+        row("token_scatter_bwd", "token_scatter.cu", "warp.py:807",
+            fused_launches["token_scatter_bwd"], dbwd),
+        row("scan_states", "scan_states.cu", "scan.py:122", j_launches, j),
     ]
+    require(all(k["launches"] > 0 for k in kernels), "every kernel of the JSON line launched")
     print(json.dumps({"kernels": kernels}))
     print(smi.stdout.strip())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,6 +4,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace smow {
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -53,34 +55,89 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Bilinear corners of one grid point (x, y in [-1, 1]) in an H x W image,
-// border padding, align_corners=True, exactly as the JAX package's
-// `_corner_indices_weights`: the coordinate is clamped before the floor
-// (a NaN clamps to 0), x1 = min(x0 + 1, W - 1). idx[k * 2 + j] is the flat
-// index of corner (y_k, x_j); wy[k], wx[j] are the separable lerp weights.
+// exactly as the JAX package's `_corner_indices_weights`. The coordinate is
+// unnormalised as (g + 1) (size - 1) / 2 with kAlign (align_corners=True)
+// and as ((g + 1) size - 1) / 2 without (each step rounded on its own, as
+// the plain version rounds it: no contraction into an FMA). Border padding
+// (kZeros false) clamps it to [0, size - 1] before the floor (a NaN clamps
+// to 0) and takes x1 = min(x0 + 1, W - 1); zeros padding multiplies each
+// per-axis weight by its corner's validity and clamps the indices into the
+// image. idx[k * 2 + j] is the flat index of corner (y_k, x_j); wy[k], wx[j]
+// are the separable lerp weights.
 struct Corners {
   int idx[4];
   float wy[2], wx[2];
 };
 
+template <bool kAlign>
+__device__ __forceinline__ float unnormalize(float g, int size) {
+  if (kAlign) return __fmul_rn(__fmul_rn(__fadd_rn(g, 1.f), 0.5f), (float)(size - 1));
+  return __fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(g, 1.f), (float)size), -1.f), 0.5f);
+}
+
+template <bool kZeros = false, bool kAlign = true>
 __device__ __forceinline__ Corners bilinear_corners(float2 g, int H, int W) {
-  float ix = (g.x + 1.f) * 0.5f * (float)(W - 1);
-  float iy = (g.y + 1.f) * 0.5f * (float)(H - 1);
-  ix = fminf(fmaxf(ix, 0.f), (float)(W - 1));
-  iy = fminf(fmaxf(iy, 0.f), (float)(H - 1));
+  float ix = unnormalize<kAlign>(g.x, W);
+  float iy = unnormalize<kAlign>(g.y, H);
+  if (!kZeros) {
+    ix = fminf(fmaxf(ix, 0.f), (float)(W - 1));
+    iy = fminf(fmaxf(iy, 0.f), (float)(H - 1));
+  }
   const float fx0 = floorf(ix), fy0 = floorf(iy);
   const float tx = ix - fx0, ty = iy - fy0;
-  const int x0 = (int)fx0, y0 = (int)fy0;
-  const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
   Corners c;
-  c.idx[0] = y0 * W + x0;
-  c.idx[1] = y0 * W + x1;
-  c.idx[2] = y1 * W + x0;
-  c.idx[3] = y1 * W + x1;
   c.wy[0] = 1.f - ty;
   c.wy[1] = ty;
   c.wx[0] = 1.f - tx;
   c.wx[1] = tx;
+  int x0, y0, x1, y1;
+  if (kZeros) {
+    c.wx[0] *= (float)(fx0 >= 0.f && fx0 < (float)W);
+    c.wx[1] *= (float)(fx0 + 1.f >= 0.f && fx0 + 1.f < (float)W);
+    c.wy[0] *= (float)(fy0 >= 0.f && fy0 < (float)H);
+    c.wy[1] *= (float)(fy0 + 1.f >= 0.f && fy0 + 1.f < (float)H);
+    // -1 .. size before the clamp, so a far or NaN coordinate stays in range
+    const int xl = (int)fminf(fmaxf(fx0, -1.f), (float)W);
+    const int yl = (int)fminf(fmaxf(fy0, -1.f), (float)H);
+    x0 = min(max(xl, 0), W - 1);
+    y0 = min(max(yl, 0), H - 1);
+    x1 = min(max(xl + 1, 0), W - 1);
+    y1 = min(max(yl + 1, 0), H - 1);
+  } else {
+    x0 = (int)fx0;
+    y0 = (int)fy0;
+    x1 = min(x0 + 1, W - 1);
+    y1 = min(y0 + 1, H - 1);
+  }
+  c.idx[0] = y0 * W + x0;
+  c.idx[1] = y0 * W + x1;
+  c.idx[2] = y1 * W + x0;
+  c.idx[3] = y1 * W + x1;
   return c;
+}
+
+// The warp kernels' instantiations: f(TypeTag<T>, IntTag<C>, BoolTag<zeros>,
+// BoolTag<align>) for the element type (fp32 or bf16), C in {8, 16, 32} and
+// the four (padding, align_corners) pairs; any other C is refused.
+template <typename T> struct TypeTag { using type = T; };
+template <int V> using IntTag = std::integral_constant<int, V>;
+template <bool V> using BoolTag = std::integral_constant<bool, V>;
+
+template <typename F>
+cudaError_t dispatch_warp(int C, int is_bf16, int zeros, int align, F&& f) {
+  auto modes = [&](auto t, auto c) -> cudaError_t {
+    if (zeros) return align ? f(t, c, BoolTag<true>{}, BoolTag<true>{})
+                            : f(t, c, BoolTag<true>{}, BoolTag<false>{});
+    return align ? f(t, c, BoolTag<false>{}, BoolTag<true>{})
+                 : f(t, c, BoolTag<false>{}, BoolTag<false>{});
+  };
+  auto widths = [&](auto t) -> cudaError_t {
+    if (C == 8) return modes(t, IntTag<8>{});
+    if (C == 16) return modes(t, IntTag<16>{});
+    if (C == 32) return modes(t, IntTag<32>{});
+    return cudaErrorInvalidValue;
+  };
+  return is_bf16 ? widths(TypeTag<__nv_bfloat16>{}) : widths(TypeTag<float>{});
 }
 
 // The bilinear sample of the C-channel image `img` at the corners `cr`:

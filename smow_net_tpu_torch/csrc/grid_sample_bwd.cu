@@ -4,7 +4,9 @@
 // smow_net_tpu/ops/pallas/warp.py, which the token chain's split backward
 // (`_tok_hyb_bwd`) runs second. The primal op samples an image x at a grid;
 // given x and the pixel cotangent gy, for every grid pixel p with corners
-// (y_k, x_j) and separable weights (wy_k, wx_j):
+// (y_k, x_j) and separable weights (wy_k, wx_j) (border or zeros padding,
+// either align_corners; under zeros padding the weights carry the corners'
+// validity):
 //   dx[y_k, x_j, c] += wy_k wx_j gy[p, c]                     (a scatter)
 //   s_kj     = sum_c x[y_k, x_j, c] gy[p, c]
 //   dwy_k[p] = sum_j wx_j s_kj,   dwx_j[p] = sum_k wy_k s_kj
@@ -29,7 +31,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <typename T, int C>
+template <typename T, int C, bool kZeros, bool kAlign>
 __global__ void __launch_bounds__(kThreads)
 grid_sample_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy,
                        const float* __restrict__ grid, float* __restrict__ dx,
@@ -38,7 +40,7 @@ grid_sample_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy,
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= P) return;
   const float2 gp = __ldg(reinterpret_cast<const float2*>(grid) + (size_t)b * P + p);
-  const smow::Corners cr = smow::bilinear_corners(gp, H, W);
+  const smow::Corners cr = smow::bilinear_corners<kZeros, kAlign>(gp, H, W);
   float gv[C];
   smow::load_f32<T, C>(gy + ((size_t)b * P + p) * C, gv);
   const T* xb = x + (size_t)b * H * W * C;
@@ -64,34 +66,27 @@ grid_sample_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy,
   dwb[3 * P] = cr.wy[0] * s[1] + cr.wy[1] * s[3];  // dwx1
 }
 
-template <typename T, int C>
-cudaError_t launch(const void* x, const void* gy, const void* grid, void* dx, void* dw,
-                   int B, int H, int W, int P, cudaStream_t stream) {
-  const dim3 blocks((P + kThreads - 1) / kThreads, B);
-  grid_sample_bwd_kernel<T, C><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gy), static_cast<const float*>(grid),
-      static_cast<float*>(dx), static_cast<float*>(dw), H, W, P);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // x: (B, H, W, C) primal image; gy: (B, Hg, Wg, C) pixel cotangent, the
 // same dtype (fp32 or bf16); grid: (B, Hg, Wg, 2) fp32. Accumulates into
 // dx: (B, H, W, C) fp32, zeroed, and writes dw: (B, 4, Hg, Wg) fp32 rows
-// (dwy0, dwy1, dwx0, dwx1). C is 8 or 16.
+// (dwy0, dwy1, dwx0, dwx1). C is 8, 16 or 32; zeros: zeros padding (else
+// border); align: align_corners.
 extern "C" int grid_sample_bwd(const void* x, const void* gy, const void* grid, void* dx,
                                void* dw, int B, int H, int W, int Hg, int Wg, int C,
-                               int is_bf16, void* stream) {
+                               int is_bf16, int zeros, int align, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Hg <= 0 || Wg <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int P = Hg * Wg;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (C == 8)
-    err = is_bf16 ? launch<__nv_bfloat16, 8>(x, gy, grid, dx, dw, B, H, W, P, s)
-                  : launch<float, 8>(x, gy, grid, dx, dw, B, H, W, P, s);
-  else if (C == 16)
-    err = is_bf16 ? launch<__nv_bfloat16, 16>(x, gy, grid, dx, dw, B, H, W, P, s)
-                  : launch<float, 16>(x, gy, grid, dx, dw, B, H, W, P, s);
-  return static_cast<int>(err);
+  const dim3 blocks((P + kThreads - 1) / kThreads, B);
+  return static_cast<int>(smow::dispatch_warp(C, is_bf16, zeros, align,
+                                              [&](auto t, auto c, auto z, auto al) {
+    using T = typename decltype(t)::type;
+    grid_sample_bwd_kernel<T, decltype(c)::value, decltype(z)::value, decltype(al)::value>
+        <<<blocks, kThreads, 0, s>>>(static_cast<const T*>(x), static_cast<const T*>(gy),
+                                     static_cast<const float*>(grid), static_cast<float*>(dx),
+                                     static_cast<float*>(dw), H, W, P);
+    return cudaGetLastError();
+  }));
 }

@@ -3,9 +3,10 @@
 // Replaces `grid_sample_pallas` / `_kernel` in smow_net_tpu/ops/pallas/warp.py,
 // which SMOW_Net_LW's train-time token chain runs first (`flow_warp` of the
 // attention logits). For every grid pixel p with corners (y_k, x_j) and
-// separable weights (wy_k, wx_j) (border padding, align_corners=True):
+// separable weights (wy_k, wx_j) (border or zeros padding, either
+// align_corners, as common.cuh `bilinear_corners` computes them):
 //   out[p, c] = sum_{k,j} wy_k wx_j x[y_k, x_j, c]
-// in fp32, rounded once to x's dtype.
+// in fp32, rounded once to x's dtype. C is 8, 16 or 32 (OFW's features).
 //
 // What bounds it on the card: memory. Per pixel it reads the grid point and
 // four C-channel image rows (gathers that mostly hit L2: neighbouring pixels
@@ -24,7 +25,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <typename T, int C>
+template <typename T, int C, bool kZeros, bool kAlign>
 __global__ void __launch_bounds__(kThreads)
 grid_sample_fwd_kernel(const T* __restrict__ x, const float* __restrict__ grid,
                        T* __restrict__ out, int H, int W, int P) {
@@ -32,36 +33,30 @@ grid_sample_fwd_kernel(const T* __restrict__ x, const float* __restrict__ grid,
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= P) return;
   const float2 gp = __ldg(reinterpret_cast<const float2*>(grid) + (size_t)b * P + p);
-  const smow::Corners cr = smow::bilinear_corners(gp, H, W);
+  const smow::Corners cr = smow::bilinear_corners<kZeros, kAlign>(gp, H, W);
   float v[C];
   smow::gather_lerp<T, C>(x + (size_t)b * H * W * C, cr, v);
   smow::store_from_f32<T, C>(out + ((size_t)b * P + p) * C, v);
 }
 
-template <typename T, int C>
-cudaError_t launch(const void* x, const void* grid, void* out, int B, int H, int W, int P,
-                   cudaStream_t stream) {
-  const dim3 blocks((P + kThreads - 1) / kThreads, B);
-  grid_sample_fwd_kernel<T, C><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(grid), static_cast<T*>(out), H, W, P);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // x: (B, H, W, C) fp32 or bf16 image; grid: (B, Hg, Wg, 2) fp32. Writes
-// out: (B, Hg, Wg, C) in x's dtype. C is 8 or 16.
+// out: (B, Hg, Wg, C) in x's dtype. C is 8, 16 or 32; zeros: zeros padding
+// (else border); align: align_corners.
 extern "C" int grid_sample_fwd(const void* x, const void* grid, void* out, int B, int H, int W,
-                               int Hg, int Wg, int C, int is_bf16, void* stream) {
+                               int Hg, int Wg, int C, int is_bf16, int zeros, int align,
+                               void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Hg <= 0 || Wg <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int P = Hg * Wg;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (C == 8)
-    err = is_bf16 ? launch<__nv_bfloat16, 8>(x, grid, out, B, H, W, P, s)
-                  : launch<float, 8>(x, grid, out, B, H, W, P, s);
-  else if (C == 16)
-    err = is_bf16 ? launch<__nv_bfloat16, 16>(x, grid, out, B, H, W, P, s)
-                  : launch<float, 16>(x, grid, out, B, H, W, P, s);
-  return static_cast<int>(err);
+  const dim3 blocks((P + kThreads - 1) / kThreads, B);
+  return static_cast<int>(smow::dispatch_warp(C, is_bf16, zeros, align,
+                                              [&](auto t, auto c, auto z, auto al) {
+    using T = typename decltype(t)::type;
+    grid_sample_fwd_kernel<T, decltype(c)::value, decltype(z)::value, decltype(al)::value>
+        <<<blocks, kThreads, 0, s>>>(static_cast<const T*>(x), static_cast<const float*>(grid),
+                                     static_cast<T*>(out), H, W, P);
+    return cudaGetLastError();
+  }));
 }

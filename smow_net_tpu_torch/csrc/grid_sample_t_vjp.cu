@@ -5,7 +5,9 @@
 // (`_tok_hyb_bwd`) runs first. The primal op scatters a pixel tensor g
 // through the bilinear weights of a grid into an image; given the image-side
 // cotangent xbar and the primal g, for every grid pixel p with corners
-// (y_k, x_j) and separable weights (wy_k, wx_j):
+// (y_k, x_j) and separable weights (wy_k, wx_j) (border or zeros padding,
+// either align_corners; under zeros padding the weights carry the corners'
+// validity, so the rows are the gradients of the masked weights):
 //   dg[p, c] = sum_{k,j} wy_k wx_j xbar[y_k, x_j, c]          (a gather)
 //   s_kj     = sum_c xbar[y_k, x_j, c] g[p, c]
 //   dwy_k[p] = sum_j wx_j s_kj,   dwx_j[p] = sum_k wy_k s_kj
@@ -29,7 +31,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <typename T, int C>
+template <typename T, int C, bool kZeros, bool kAlign>
 __global__ void __launch_bounds__(kThreads)
 grid_sample_t_vjp_kernel(const T* __restrict__ xbar, const T* __restrict__ g,
                          const float* __restrict__ grid, T* __restrict__ dg,
@@ -38,7 +40,7 @@ grid_sample_t_vjp_kernel(const T* __restrict__ xbar, const T* __restrict__ g,
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= P) return;
   const float2 gp = __ldg(reinterpret_cast<const float2*>(grid) + (size_t)b * P + p);
-  const smow::Corners cr = smow::bilinear_corners(gp, H, W);
+  const smow::Corners cr = smow::bilinear_corners<kZeros, kAlign>(gp, H, W);
   float gv[C];
   smow::load_f32<T, C>(g + ((size_t)b * P + p) * C, gv);
   const T* xb = xbar + (size_t)b * H * W * C;
@@ -67,34 +69,27 @@ grid_sample_t_vjp_kernel(const T* __restrict__ xbar, const T* __restrict__ g,
   dwb[3 * P] = cr.wy[0] * s[1] + cr.wy[1] * s[3];  // dwx1
 }
 
-template <typename T, int C>
-cudaError_t launch(const void* xbar, const void* g, const void* grid, void* dg, void* dw,
-                   int B, int H, int W, int P, cudaStream_t stream) {
-  const dim3 blocks((P + kThreads - 1) / kThreads, B);
-  grid_sample_t_vjp_kernel<T, C><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(xbar), static_cast<const T*>(g), static_cast<const float*>(grid),
-      static_cast<T*>(dg), static_cast<float*>(dw), H, W, P);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // xbar: (B, H, W, C) image-side cotangent; g: (B, Hg, Wg, C) primal pixel
 // tensor, the same dtype (fp32 or bf16); grid: (B, Hg, Wg, 2) fp32.
 // Writes dg: (B, Hg, Wg, C) in g's dtype and dw: (B, 4, Hg, Wg) fp32 rows
-// (dwy0, dwy1, dwx0, dwx1). C is 8 or 16.
+// (dwy0, dwy1, dwx0, dwx1). C is 8, 16 or 32; zeros: zeros padding (else
+// border); align: align_corners.
 extern "C" int grid_sample_t_vjp(const void* xbar, const void* g, const void* grid, void* dg,
                                  void* dw, int B, int H, int W, int Hg, int Wg, int C,
-                                 int is_bf16, void* stream) {
+                                 int is_bf16, int zeros, int align, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Hg <= 0 || Wg <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int P = Hg * Wg;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (C == 8)
-    err = is_bf16 ? launch<__nv_bfloat16, 8>(xbar, g, grid, dg, dw, B, H, W, P, s)
-                  : launch<float, 8>(xbar, g, grid, dg, dw, B, H, W, P, s);
-  else if (C == 16)
-    err = is_bf16 ? launch<__nv_bfloat16, 16>(xbar, g, grid, dg, dw, B, H, W, P, s)
-                  : launch<float, 16>(xbar, g, grid, dg, dw, B, H, W, P, s);
-  return static_cast<int>(err);
+  const dim3 blocks((P + kThreads - 1) / kThreads, B);
+  return static_cast<int>(smow::dispatch_warp(C, is_bf16, zeros, align,
+                                              [&](auto t, auto c, auto z, auto al) {
+    using T = typename decltype(t)::type;
+    grid_sample_t_vjp_kernel<T, decltype(c)::value, decltype(z)::value, decltype(al)::value>
+        <<<blocks, kThreads, 0, s>>>(static_cast<const T*>(xbar), static_cast<const T*>(g),
+                                     static_cast<const float*>(grid), static_cast<T*>(dg),
+                                     static_cast<float*>(dw), H, W, P);
+    return cudaGetLastError();
+  }));
 }

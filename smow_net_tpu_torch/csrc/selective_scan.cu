@@ -84,14 +84,17 @@ constexpr float kLn2 = 0.6931471805599453f;
 // final state and the dt sum
 enum { kModeFwd = 0, kModeCkpt = 1, kModeCarry = 2 };
 
-// Where row r' = blockIdx.y of a call lies in its tensors (see the header);
-// the layout is a template parameter, so the grouped layout's strides are
-// the compile-time widths.
+// Where row r' = row0 + blockIdx.y of a launch lies in its tensors (see the
+// header); the layout is a template parameter, so the grouped layout's
+// strides are the compile-time widths. Grid y stops at 65535, so a call of
+// more rows is launched in slices of rows, each from its row0.
 template <bool kFlat>
 struct Rows {
   int L;      // steps each row walks
   int S;      // segments per sequence
   int G;      // groups
+  int row0;   // the launch's first row
+  int rows;   // the call's rows (all launches)
 
   __device__ __forceinline__ int group(int rs) const { return (rs / S) % G; }
   // distance between consecutive steps in a tensor of width W
@@ -224,7 +227,7 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dts, const T* __r
   __shared__ float sB[kChunk][kN];
   __shared__ float sC[kChunk][kN];
   const int lane = threadIdx.x;
-  const int r = blockIdx.y;
+  const int r = rw.row0 + blockIdx.y;
   const int c = blockIdx.x * kChannels + (lane >> 1);
   const int n0 = (lane & 1) * kHalf;
   const bool active = c < Dk;
@@ -363,7 +366,7 @@ scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dts, const T* __r
   __shared__ float sB[kChunk][kN];
   __shared__ float sC[kChunk][kN];
   const int lane = threadIdx.x;
-  const int r = blockIdx.y;
+  const int r = rw.row0 + blockIdx.y;
   const int c = blockIdx.x * kChannels + (lane >> 1);
   const int n0 = (lane & 1) * kHalf;
   const bool active = c < Dk;
@@ -385,7 +388,7 @@ scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dts, const T* __r
   const size_t row_u = rw.base(r, Dk) + cc, row_n = rw.base(r, kN);
   const int n_chunks = (L + kChunk - 1) / kChunk;
   // this block's partial: block x of ceil(Dk / 16), each as large as Bm
-  const size_t part = (size_t)blockIdx.x * gridDim.y * L * kN;
+  const size_t part = (size_t)blockIdx.x * rw.rows * L * kN;
   float* dB_blk = dBp + part + row_n;
   float* dC_blk = dCp + part + row_n;
   for (int j = n_chunks - 1; j >= 0; --j) {
@@ -450,7 +453,7 @@ scan_adjcarry_kernel(const T* __restrict__ dts, const T* __restrict__ Cm,
                      int Dk) {
   __shared__ float sC[kChunk][kN];
   const int lane = threadIdx.x;
-  const int r = blockIdx.y;
+  const int r = rw.row0 + blockIdx.y;
   const int c = blockIdx.x * kChannels + (lane >> 1);
   const int n0 = (lane & 1) * kHalf;
   const bool active = c < Dk;
@@ -497,20 +500,38 @@ scan_adjcarry_kernel(const T* __restrict__ dts, const T* __restrict__ Cm,
 
 bool bad_shape(int rows, int L, int Dk, int G, int S, int flat) {
   return rows <= 0 || L <= 0 || Dk <= 0 || G <= 0 || S <= 0 || rows % ((long long)G * S) != 0 ||
-         rows > 65535 || (flat != 0 && flat != 1);
+         (flat != 0 && flat != 1);
 }
 
-dim3 grid_of(int rows, int Dk) { return dim3((Dk + kChannels - 1) / kChannels, rows); }
+constexpr int kMaxGridY = 65535;
+
+// Call `launch(grid, rw)` over the call's rows in slices of at most kMaxGridY,
+// each on grid (channel blocks, slice rows) with its Rows; the first error
+// stops it.
+template <bool kFlat, typename F>
+cudaError_t launch_rows(int rows, int L, int Dk, int G, int S, F&& launch) {
+  for (int row0 = 0; row0 < rows; row0 += kMaxGridY) {
+    const int slice = rows - row0 < kMaxGridY ? rows - row0 : kMaxGridY;
+    const dim3 grid((Dk + kChannels - 1) / kChannels, slice);
+    launch(grid, Rows<kFlat>{L, S, G, row0, rows});
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
 
 template <typename T, int kMode, bool kFlat>
-void launch_fwd_as(const void* u, const void* dts, const void* Bm, const void* Cm, const void* A,
-                   const void* Dv, const void* bias, const void* h0, void* y, void* hout,
-                   void* csum, int rows, int L, int Dk, int G, int S, cudaStream_t s) {
-  scan_fwd_kernel<T, kMode, kFlat><<<grid_of(rows, Dk), kLanes, 0, s>>>(
-      static_cast<const T*>(u), static_cast<const T*>(dts), static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), static_cast<const float*>(A), static_cast<const float*>(Dv),
-      static_cast<const float*>(bias), static_cast<const float*>(h0), static_cast<T*>(y),
-      static_cast<float*>(hout), static_cast<float*>(csum), Rows<kFlat>{L, S, G}, Dk);
+cudaError_t launch_fwd_as(const void* u, const void* dts, const void* Bm, const void* Cm,
+                          const void* A, const void* Dv, const void* bias, const void* h0,
+                          void* y, void* hout, void* csum, int rows, int L, int Dk, int G, int S,
+                          cudaStream_t s) {
+  return launch_rows<kFlat>(rows, L, Dk, G, S, [&](dim3 grid, Rows<kFlat> rw) {
+    scan_fwd_kernel<T, kMode, kFlat><<<grid, kLanes, 0, s>>>(
+        static_cast<const T*>(u), static_cast<const T*>(dts), static_cast<const T*>(Bm),
+        static_cast<const T*>(Cm), static_cast<const float*>(A), static_cast<const float*>(Dv),
+        static_cast<const float*>(bias), static_cast<const float*>(h0), static_cast<T*>(y),
+        static_cast<float*>(hout), static_cast<float*>(csum), rw, Dk);
+  });
 }
 
 template <typename T, int kMode>
@@ -519,26 +540,27 @@ cudaError_t launch_fwd(const void* u, const void* dts, const void* Bm, const voi
                        void* hout, void* csum, int rows, int L, int Dk, int G, int S, int flat,
                        cudaStream_t s) {
   if (flat)
-    launch_fwd_as<T, kMode, true>(u, dts, Bm, Cm, A, Dv, bias, h0, y, hout, csum, rows, L, Dk,
-                                  G, S, s);
-  else
-    launch_fwd_as<T, kMode, false>(u, dts, Bm, Cm, A, Dv, bias, h0, y, hout, csum, rows, L, Dk,
-                                   G, S, s);
-  return cudaGetLastError();
+    return launch_fwd_as<T, kMode, true>(u, dts, Bm, Cm, A, Dv, bias, h0, y, hout, csum, rows,
+                                         L, Dk, G, S, s);
+  return launch_fwd_as<T, kMode, false>(u, dts, Bm, Cm, A, Dv, bias, h0, y, hout, csum, rows, L,
+                                        Dk, G, S, s);
 }
 
 template <typename T, bool kFlat>
-void launch_bwd_as(const void* u, const void* dts, const void* Bm, const void* Cm,
-                   const void* dy, const void* A, const void* bias, const void* hck,
-                   const void* g0, const void* a0, void* dus, void* ddt, void* dBp, void* dCp,
-                   void* dA, int rows, int L, int Dk, int G, int S, cudaStream_t s) {
-  scan_bwd_kernel<T, kFlat><<<grid_of(rows, Dk), kLanes, 0, s>>>(
-      static_cast<const T*>(u), static_cast<const T*>(dts), static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), static_cast<const T*>(dy), static_cast<const float*>(A),
-      static_cast<const float*>(bias), static_cast<const float*>(hck),
-      static_cast<const float*>(g0), static_cast<const float*>(a0), static_cast<float*>(dus),
-      static_cast<float*>(ddt), static_cast<float*>(dBp), static_cast<float*>(dCp),
-      static_cast<float*>(dA), Rows<kFlat>{L, S, G}, Dk);
+cudaError_t launch_bwd_as(const void* u, const void* dts, const void* Bm, const void* Cm,
+                          const void* dy, const void* A, const void* bias, const void* hck,
+                          const void* g0, const void* a0, void* dus, void* ddt, void* dBp,
+                          void* dCp, void* dA, int rows, int L, int Dk, int G, int S,
+                          cudaStream_t s) {
+  return launch_rows<kFlat>(rows, L, Dk, G, S, [&](dim3 grid, Rows<kFlat> rw) {
+    scan_bwd_kernel<T, kFlat><<<grid, kLanes, 0, s>>>(
+        static_cast<const T*>(u), static_cast<const T*>(dts), static_cast<const T*>(Bm),
+        static_cast<const T*>(Cm), static_cast<const T*>(dy), static_cast<const float*>(A),
+        static_cast<const float*>(bias), static_cast<const float*>(hck),
+        static_cast<const float*>(g0), static_cast<const float*>(a0), static_cast<float*>(dus),
+        static_cast<float*>(ddt), static_cast<float*>(dBp), static_cast<float*>(dCp),
+        static_cast<float*>(dA), rw, Dk);
+  });
 }
 
 template <typename T>
@@ -548,32 +570,30 @@ cudaError_t launch_bwd(const void* u, const void* dts, const void* Bm, const voi
                        void* dCp, void* dA, int rows, int L, int Dk, int G, int S, int flat,
                        cudaStream_t s) {
   if (flat)
-    launch_bwd_as<T, true>(u, dts, Bm, Cm, dy, A, bias, hck, g0, a0, dus, ddt, dBp, dCp, dA,
-                           rows, L, Dk, G, S, s);
-  else
-    launch_bwd_as<T, false>(u, dts, Bm, Cm, dy, A, bias, hck, g0, a0, dus, ddt, dBp, dCp, dA,
-                            rows, L, Dk, G, S, s);
-  return cudaGetLastError();
+    return launch_bwd_as<T, true>(u, dts, Bm, Cm, dy, A, bias, hck, g0, a0, dus, ddt, dBp, dCp,
+                                  dA, rows, L, Dk, G, S, s);
+  return launch_bwd_as<T, false>(u, dts, Bm, Cm, dy, A, bias, hck, g0, a0, dus, ddt, dBp, dCp,
+                                 dA, rows, L, Dk, G, S, s);
+}
+
+template <typename T, bool kFlat>
+cudaError_t launch_adjcarry_as(const void* dts, const void* Cm, const void* dy, const void* A,
+                               const void* bias, void* gout, int rows, int L, int Dk, int G,
+                               int S, cudaStream_t s) {
+  return launch_rows<kFlat>(rows, L, Dk, G, S, [&](dim3 grid, Rows<kFlat> rw) {
+    scan_adjcarry_kernel<T, kFlat><<<grid, kLanes, 0, s>>>(
+        static_cast<const T*>(dts), static_cast<const T*>(Cm), static_cast<const T*>(dy),
+        static_cast<const float*>(A), static_cast<const float*>(bias), static_cast<float*>(gout),
+        rw, Dk);
+  });
 }
 
 template <typename T>
 cudaError_t launch_adjcarry(const void* dts, const void* Cm, const void* dy, const void* A,
                             const void* bias, void* gout, int rows, int L, int Dk, int G, int S,
                             int flat, cudaStream_t s) {
-  const dim3 grid = grid_of(rows, Dk);
-  const T* d = static_cast<const T*>(dts);
-  const T* c = static_cast<const T*>(Cm);
-  const T* g = static_cast<const T*>(dy);
-  const float* a = static_cast<const float*>(A);
-  const float* b = static_cast<const float*>(bias);
-  float* o = static_cast<float*>(gout);
-  if (flat)
-    scan_adjcarry_kernel<T, true><<<grid, kLanes, 0, s>>>(d, c, g, a, b, o, Rows<true>{L, S, G},
-                                                          Dk);
-  else
-    scan_adjcarry_kernel<T, false><<<grid, kLanes, 0, s>>>(d, c, g, a, b, o,
-                                                           Rows<false>{L, S, G}, Dk);
-  return cudaGetLastError();
+  if (flat) return launch_adjcarry_as<T, true>(dts, Cm, dy, A, bias, gout, rows, L, Dk, G, S, s);
+  return launch_adjcarry_as<T, false>(dts, Cm, dy, A, bias, gout, rows, L, Dk, G, S, s);
 }
 
 }  // namespace

@@ -1,7 +1,9 @@
-// Kernels D and E: the OFW token chain's warped-softmax scatter, forward.
+// Kernels D, E and D-bwd: the OFW token chain's warped-softmax scatter,
+// forward and its whole VJP.
 //
-// D replaces `token_scatter_pallas` / `_tok_kernel` and E replaces
-// `token_scatter_hybrid_pallas` / `_tok_kernel_hyb` in
+// D replaces `token_scatter_pallas` / `_tok_kernel`, E replaces
+// `token_scatter_hybrid_pallas` / `_tok_kernel_hyb` and D-bwd replaces
+// `_tok_bwd` / `_tok_bwd_kernel` (the fused lowering's backward) in
 // smow_net_tpu/ops/pallas/warp.py. For each frame f and token channel l:
 //   aw  = S a          bilinear sample of the logits at the flow grid
 //                      (border padding, align_corners=True)
@@ -11,24 +13,35 @@
 // (ew, zaw) share the per-(frame, l) scale exp(max aw - m): the caller
 // divides ew by max(zaw, tiny) (smow_net_tpu/ops/warp.py:217-257 contract).
 // E is D that also writes eaw in the input dtype, the residual the split
-// backward (kernels C and A-bwd) reads; D is the inference entry.
+// backward (kernels C and A-bwd) reads; D is the inference entry and the
+// fused chain's forward.
+//
+// D-bwd takes the cotangents (ew_bar, dzaw) and saves nothing from the
+// forward but (a, grid, m): per grid pixel it recomputes aw and eaw, and
+//   dg  = S ew_bar,  daw = (dg + dzaw) eaw,  da = S^T daw   (a scatter)
+//   s_kj = sum_c daw_c a[y_k, x_j, c] + sum_c eaw_c ew_bar[y_k, x_j, c]
+//   dwy_k = sum_j wx_j s_kj,  dwx_j = sum_k wy_k s_kj
+// the weight-gradient rows of both gathers summed (they share the grid);
+// the wrapper carries them to dgrid.
 //
 // What bounds it on the card: memory traffic and atomics, not arithmetic.
 // At the SMOW_Net shape (32 frames, 128x128, 8 channels) each pixel reads
 // four 8-channel logit rows (16 B each in bf16) and issues 32 fp32 atomic
 // adds into the 16 MB ew accumulator, which stays resident in the 50 MB L2.
-// E adds one 16-byte store per pixel in bf16.
+// E adds one 16-byte store per pixel in bf16. D-bwd reads eight corner rows
+// (four of a, four of ew_bar), issues the same 32 atomics into da and writes
+// four fp32 weight gradients.
 //
 // Design: the TPU kernel expressed the gather and the scatter as one-hot
 // matmuls because the TPU has no fast gather. Here one thread owns one
 // output pixel: it computes its four corners and weights exactly as
 // `_corner_indices_weights` does (common.cuh `bilinear_corners`), gathers
 // each corner's channel row with 16-byte loads, lerps and exponentiates in
-// fp32, and scatters w_k * eaw with atomicAdd into an fp32 accumulator (the
-// wrapper casts to the input dtype). zaw is reduced per block with warp
-// shuffles and added with one atomicAdd per block and channel. Atomics make
-// the summation order, and so the last bits of ew and zaw, vary from run to
-// run.
+// fp32, and scatters w_k * eaw (D-bwd: w_k * daw) with atomicAdd into an
+// fp32 accumulator (the wrapper casts to the input dtype). zaw is reduced
+// per block with warp shuffles and added with one atomicAdd per block and
+// channel. Atomics make the summation order, and so the last bits of ew,
+// zaw and da, vary from run to run.
 
 #include "common.cuh"
 
@@ -75,6 +88,68 @@ token_scatter_fwd_kernel(const T* __restrict__ a, const float* __restrict__ grid
   }
 }
 
+// D-bwd: one thread per grid pixel of frame blockIdx.y.
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads)
+token_scatter_bwd_kernel(const T* __restrict__ a, const float* __restrict__ grid,
+                         const float* __restrict__ m, const float* __restrict__ dz,
+                         const T* __restrict__ ew_bar, float* __restrict__ da,
+                         float* __restrict__ dw, int H, int W) {
+  const int f = blockIdx.y;
+  const int P = H * W;
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= P) return;
+  const float2 g = __ldg(reinterpret_cast<const float2*>(grid) + (size_t)f * P + p);
+  const smow::Corners cr = smow::bilinear_corners(g, H, W);
+  const T* af = a + (size_t)f * P * C;
+  const T* ef = ew_bar + (size_t)f * P * C;
+  float va[4][C], ve[4][C];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    smow::load_f32<T, C>(af + (size_t)cr.idx[k] * C, va[k]);
+    smow::load_f32<T, C>(ef + (size_t)cr.idx[k] * C, ve[k]);
+  }
+  float eaw[C], daw[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    float aw = 0.f, dg = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float w = cr.wy[k / 2] * cr.wx[k % 2];
+      aw += w * va[k][c];
+      dg += w * ve[k][c];
+    }
+    eaw[c] = expf(aw - __ldg(m + f * C + c));
+    daw[c] = (dg + __ldg(dz + f * C + c)) * eaw[c];
+  }
+  smow::scatter_lerp<C>(da + (size_t)f * P * C, cr, daw);
+  float s[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float dot = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) dot += daw[c] * va[k][c] + eaw[c] * ve[k][c];
+    s[k] = dot;
+  }
+  float* dwf = dw + (size_t)f * 4 * P + p;
+  dwf[0] = cr.wx[0] * s[0] + cr.wx[1] * s[1];       // dwy0
+  dwf[P] = cr.wx[0] * s[2] + cr.wx[1] * s[3];       // dwy1
+  dwf[2 * P] = cr.wy[0] * s[0] + cr.wy[1] * s[2];   // dwx0
+  dwf[3 * P] = cr.wy[0] * s[1] + cr.wy[1] * s[3];   // dwx1
+}
+
+template <typename T, int C>
+cudaError_t launch_bwd(const void* a, const void* grid, const void* m, const void* dz,
+                       const void* ew_bar, void* da, void* dw, int frames, int H, int W,
+                       cudaStream_t stream) {
+  const dim3 blocks((H * W + kThreads - 1) / kThreads, frames);
+  token_scatter_bwd_kernel<T, C><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(a), static_cast<const float*>(grid), static_cast<const float*>(m),
+      static_cast<const float*>(dz), static_cast<const T*>(ew_bar), static_cast<float*>(da),
+      static_cast<float*>(dw), H, W);
+  return cudaGetLastError();
+}
+
 template <typename T, int C, bool kResidual>
 cudaError_t launch(const void* a, const void* grid, const void* m, void* ew, void* zaw,
                    void* eaw, int frames, int H, int W, cudaStream_t stream) {
@@ -119,6 +194,27 @@ extern "C" int token_scatter_fwd_eaw(const void* a, const void* grid, const void
                                      int W, int C, int is_bf16, void* stream) {
   return static_cast<int>(dispatch<true>(a, grid, m, ew, zaw, eaw, frames, H, W, C, is_bf16,
                                          static_cast<cudaStream_t>(stream)));
+}
+
+// Kernel D-bwd: a (frames, H, W, C) fp32 or bf16 logits, grid, m as above;
+// dz: (frames, C) fp32, the cotangent of zaw; ew_bar: (frames, H, W, C) in
+// a's dtype, the cotangent of ew. Accumulates into da: (frames, H, W, C)
+// fp32, zeroed, and writes dw: (frames, 4, H, W) fp32 rows (dwy0, dwy1,
+// dwx0, dwx1). C is 8 or 16.
+extern "C" int token_scatter_bwd(const void* a, const void* grid, const void* m,
+                                 const void* dz, const void* ew_bar, void* da, void* dw,
+                                 int frames, int H, int W, int C, int is_bf16, void* stream) {
+  if (frames <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (C == 8)
+    err = is_bf16 ? launch_bwd<__nv_bfloat16, 8>(a, grid, m, dz, ew_bar, da, dw, frames, H, W, s)
+                  : launch_bwd<float, 8>(a, grid, m, dz, ew_bar, da, dw, frames, H, W, s);
+  else if (C == 16)
+    err = is_bf16 ? launch_bwd<__nv_bfloat16, 16>(a, grid, m, dz, ew_bar, da, dw, frames, H, W,
+                                                 s)
+                  : launch_bwd<float, 16>(a, grid, m, dz, ew_bar, da, dw, frames, H, W, s);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* smow_cuda_error_string(int err) {

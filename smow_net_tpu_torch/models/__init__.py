@@ -21,10 +21,11 @@ def list_models():
     return ["smow_net", "smow_net_lw", "change_mamba", "cd_mamba"]
 
 
-def get_model(name: str, device="cuda") -> torch.nn.Module:
+def get_model(name: str, device="cuda", **kwargs) -> torch.nn.Module:
     """Build a model by registry name on `device`: the CUDA card unless the
     caller asks for the CPU (device="cpu"). Raises when CUDA is asked for
-    and absent."""
+    and absent. Keyword arguments go to the model's constructor, e.g.
+    get_model("smow_net", token_train_chain="fused")."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"get_model({name!r}): no CUDA device; pass device='cpu' "
@@ -32,19 +33,19 @@ def get_model(name: str, device="cuda") -> torch.nn.Module:
     if name == "smow_net":
         from .smow_net import SMOWNet
 
-        return SMOWNet().to(device)
+        return SMOWNet(**kwargs).to(device)
     if name == "smow_net_lw":
         from .smow_net_lw import SMOWNetLW
 
-        return SMOWNetLW().to(device)
+        return SMOWNetLW(**kwargs).to(device)
     if name == "change_mamba":
         from .change_mamba import ChangeMamba
 
-        return ChangeMamba().to(device)
+        return ChangeMamba(**kwargs).to(device)
     if name == "cd_mamba":
         from .cd_mamba import CDMamba
 
-        return CDMamba().to(device)
+        return CDMamba(**kwargs).to(device)
     if name in _LATER:
         raise NotImplementedError(f"{name!r} is not ported yet: {_LATER[name]}")
     raise KeyError(f"unknown model {name!r}; available: {list_models()}")

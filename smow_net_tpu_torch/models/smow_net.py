@@ -44,9 +44,10 @@ class BasicConv3d(nn.Module):
 
 
 class OFW(nn.Module):
-    """Optical-flow warp (reference models/SMOW_Net.py:587-637). Only the
-    flow field is computed here; the token path warps the attention logits
-    with it (`ofw_tokens_fused`)."""
+    """Optical-flow warp (reference models/SMOW_Net.py:587-637). SMOWNet
+    takes only the flow field (`flow`) and warps the attention logits with
+    it (`ofw_tokens_fused`); `forward` is the reference's unfused route,
+    which warps the features themselves."""
 
     def __init__(self, inplane: int):
         super().__init__()
@@ -65,6 +66,17 @@ class OFW(nn.Module):
         y = F.interpolate(self.down(x), size=(T, H, W), mode="trilinear",
                           align_corners=True)
         return self.flow_make(torch.cat([x, y], dim=1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, C, 2, H, W) -> (B, C, 4, H, W) = [F0, warp(F0), warp(F1), F1],
+        one batched flow warp over both frames (smow_net_tpu/models/
+        smow_net.py:196-203)."""
+        B, C, T, H, W = x.shape
+        flow = self.flow(x)                                       # (B, 2, T, H, W)
+        xb = x.permute(0, 2, 3, 4, 1).reshape(B * T, H, W, C)
+        fb = flow.permute(0, 2, 3, 4, 1).reshape(B * T, H, W, 2)
+        w = warp.flow_warp(xb, fb).reshape(B, T, H, W, C).permute(0, 4, 1, 2, 3)
+        return torch.stack([x[:, :, 0], w[:, :, 0], w[:, :, 1], x[:, :, 1]], dim=2)
 
 
 class TokenTransformerEncoder(nn.Module):
@@ -88,6 +100,15 @@ class TokenTransformerEncoder(nn.Module):
         B = tokens.shape[0]
         tokens = (tokens + self.pos_embedding[None]).transpose(1, 2)
         return self.transformer(tokens.reshape(B, self.token_len, 4 * self.in_chan))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, C, 4, H, W) frames -> (B, token_len, 4*C): a softmax over the
+        pixels of each frame's logits pools its features into tokens
+        (smow_net_tpu/models/smow_net.py:238-246)."""
+        B, C, T, H, W = x.shape
+        xt = x.transpose(1, 2).reshape(B * T, C, H, W)
+        att = torch.softmax(self.conv_a(xt).reshape(B, T, self.token_len, H * W), dim=-1)
+        return self.finish(torch.einsum("btln,btcn->btlc", att, xt.reshape(B, T, C, H * W)))
 
 
 def ofw_tokens_fused(ofw: OFW, tenc: TokenTransformerEncoder,
@@ -202,10 +223,15 @@ def lift24(v: torch.Tensor) -> torch.Tensor:
 
 class SMOWNet(nn.Module):
     """forward(x1, x2) with x1, x2 (B, 3, H, W) normalized RGB -> change
-    probabilities (B, 1, H, W). H and W must be multiples of 64."""
+    probabilities (B, 1, H, W). H and W must be multiples of 64.
+    `token_train_chain` picks the token chain's train lowering ("fused",
+    "hybrid", "unfused"; None: the JAX package's shape rule), see
+    `warp.token_softmax_scatter`: the port's counterpart of the JAX
+    package's `set_token_train_impl`."""
 
-    def __init__(self):
+    def __init__(self, token_train_chain=None):
         super().__init__()
+        self.token_train_chain = token_train_chain
         self.resnet = ResNet3D()
         self.Conv3d = BasicConv3d(64, 32)
         self.OFW = OFW(32)
@@ -230,7 +256,8 @@ class SMOWNet(nn.Module):
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         x0, (f1, f2, f3, f4) = self.resnet(torch.stack([x1, x2], dim=2))
         x0 = self.Conv3d(x0)
-        tokens = ofw_tokens_fused(self.OFW, self.Transformer_Encoder, x0)
+        tokens = ofw_tokens_fused(self.OFW, self.Transformer_Encoder, x0,
+                                  self.token_train_chain)
         skips = [lift24(v) for v in (x0, self.Conv3d1(f1), self.Conv3d2(f2),
                                      self.Conv3d3(f3), self.Conv3d4(f4))]
         y = F.max_pool3d(skips[4], (1, 2, 2), (1, 2, 2))

@@ -25,8 +25,10 @@ class _FlaxBatchNorm:
     with the biased batch statistics and moves the running statistics toward
     the batch mean and the BIASED batch variance E[x^2] - E[x]^2, both taken
     in fp32 (for bf16 input too); torch's own BatchNorm moves running_var
-    toward the unbiased variance. Eval mode and the state_dict keys are
-    torch's. Mixed into torch's BatchNorm2d and BatchNorm3d below."""
+    toward the unbiased variance. With one value per channel (a 1x1 map at
+    batch 1) the variance is 0, as in flax, where F.batch_norm would raise.
+    Eval mode and the state_dict keys are torch's. Mixed into torch's
+    BatchNorm2d and BatchNorm3d below."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -43,6 +45,12 @@ class _FlaxBatchNorm:
             self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
             self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
             self.num_batches_tracked += 1
+        if x.numel() // x.shape[1] == 1:
+            # one value per channel: F.batch_norm raises, flax's variance is 0
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            xf = x.float()
+            y = (xf - xf.mean(dim=dims, keepdim=True)) * self.eps ** -0.5
+            return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 

@@ -12,7 +12,8 @@ Each C entry point launches on the stream it is given and returns
 per kernel, the launches made by the op wrappers (ops/warp.py,
 ops/xattn.py, ops/scan.py): a run can read it to show it went through the
 kernels. The selective scan's sweeps over the flat (B, L, G * Cg) layout
-(kernel H) count as `selective_scan_{fwd,ckpt,bwd}_flat`.
+(kernel H) count as `selective_scan_{fwd,ckpt,bwd}_flat`, the general
+scan's state recurrence (kernel J) as `scan_states`.
 """
 
 from __future__ import annotations
@@ -40,10 +41,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "token_scatter_fwd": [_P] * 5 + [_I] * 5 + [_P],
     "token_scatter_fwd_eaw": [_P] * 6 + [_I] * 5 + [_P],
-    "grid_sample_fwd": [_P] * 3 + [_I] * 7 + [_P],
-    "grid_sample_transpose": [_P] * 3 + [_I] * 7 + [_P],
-    "grid_sample_t_vjp": [_P] * 5 + [_I] * 7 + [_P],
-    "grid_sample_bwd": [_P] * 5 + [_I] * 7 + [_P],
+    "token_scatter_bwd": [_P] * 7 + [_I] * 5 + [_P],
+    "grid_sample_fwd": [_P] * 3 + [_I] * 9 + [_P],
+    "grid_sample_transpose": [_P] * 3 + [_I] * 9 + [_P],
+    "grid_sample_t_vjp": [_P] * 5 + [_I] * 9 + [_P],
+    "grid_sample_bwd": [_P] * 5 + [_I] * 9 + [_P],
     "xattn_layer_fwd": [_P] * 16 + [_I] * 7 + [ctypes.c_float, _P],
     "xattn_layer_bwd": [_P] * 20 + [_I] * 9 + [ctypes.c_float, _P],
     "selective_scan_fwd": [_P] * 9 + [_I] * 7 + [_P],
@@ -51,6 +53,7 @@ _SIGNATURES = {
     "selective_scan_carry": [_P] * 8 + [_I] * 7 + [_P],
     "selective_scan_bwd": [_P] * 15 + [_I] * 7 + [_P],
     "selective_scan_adjcarry": [_P] * 6 + [_I] * 7 + [_P],
+    "scan_states": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 launches: collections.Counter = collections.Counter()

@@ -23,6 +23,17 @@ Two contracts:
 Both backward passes run kernels I-ckpt and I-bwd, then the JAX package's
 epilogue (`_fused_bwd`, scan_fused.py:771-812; `_grouped_bwd`, :874-914).
 
+Kernels H and I are built for N = 16, the softplus of dt, and u, delta, B
+and C of one dtype, fp32 or bf16. On a CUDA tensor every other call of
+either contract (any N, delta_softplus=False, fp16 or float64 or mixed
+dtypes; float64 computes in fp32, as JAX does, and leaves in u's dtype)
+takes the general route, `_StatesScan` (the JAX package's
+`selective_scan_pallas`, ops/pallas/scan.py:96-200): torch forms dA =
+exp(dt A) and dBu = dt u B as fp32 (B, L, D*N) tensors, kernel J
+(`scan_states`) walks h_t = dA_t h_{t-1} + dBu_t, and torch takes y = C h
++ D u; the backward runs J twice (h again, and the reverse adjoint) and
+torch's einsums. The grouped layout is viewed as the flat one there.
+
 The segmented path (`_fwd_segmented`, `_bwd_segmented`; scan_fused.py:630,
 :657) cuts each row's L steps into S segments, so the card walks rows*S
 shorter rows: the carry sweep gives each segment's final state from zero and
@@ -52,7 +63,8 @@ from . import _kernels
 
 __all__ = ["selective_scan", "selective_scan_plain", "selective_scan_step",
            "cross_selective_scan", "cross_selective_scan_plain", "softplus", "seg_count",
-           "fwd_segmented", "bwd_segmented", "scan_carry_plain", "scan_adjcarry_plain"]
+           "fwd_segmented", "bwd_segmented", "scan_carry_plain", "scan_adjcarry_plain",
+           "scan_states", "scan_states_plain"]
 
 N_STATE = 16        # d_state built into the kernels (kN in csrc/selective_scan.cu)
 CKPT_CHUNK = 16     # I-ckpt's checkpoint interval (kChunk)
@@ -83,7 +95,7 @@ def seg_count(rows: int, L: int, Cg: int) -> int:
     blocks = rows * -(-Cg // BLOCK_CHANNELS)
     S = 1
     while (blocks * S * 2 <= SEG_TARGET_BLOCKS and L % (S * 2) == 0
-           and L // (S * 2) >= SEG_MIN_K and rows * S * 2 <= 65535):
+           and L // (S * 2) >= SEG_MIN_K):
         S *= 2
     return S
 
@@ -258,9 +270,6 @@ class _Args:
             raise ValueError(f"selective scan kernels: unsupported device {self.u.device}")
         if self.L % S:
             raise ValueError(f"selective scan: {S} segments do not divide L = {self.L}")
-        if self.rows * S > 65535:
-            raise ValueError(f"selective scan: {self.rows * S} rows; the kernels take at most "
-                             "65535 (the grid's y extent)")
         return (self.rows * S, self.L // S, self.Cg, self.G, S, int(self.flat), self.bf16,
                 _kernels.stream_handle(self.u.device))
 
@@ -601,25 +610,147 @@ class _FlatScan(torch.autograd.Function):
         return _epilogue(a, gy, *saved, sweeps)
 
 
+# ------------------------------------------------ the general route (kernel J)
+
+
+def scan_states_plain(dA: torch.Tensor, dBu: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Plain version of kernel J: h_t = dA_t h_{t-1} + dBu_t along dim 1 of
+    fp32 (B, L, ...) operands from h = 0 (with `reverse`, h_t = dA_t h_{t+1}
+    + dBu_t from the end), as chunks of `_PLAIN_CHUNK` doubling steps with
+    the state carried between them."""
+    if reverse:
+        return scan_states_plain(dA.flip(1), dBu.flip(1)).flip(1)
+    B, L = dA.shape[:2]
+    a, x = dA.reshape(B, 1, L, -1), dBu.reshape(B, 1, L, -1)
+    h, out = torch.zeros_like(x[:, :, 0]), []
+    for l0 in range(0, L, _PLAIN_CHUNK):
+        ac, xc = a[:, :, l0:l0 + _PLAIN_CHUNK], x[:, :, l0:l0 + _PLAIN_CHUNK]
+        xc = _doubling_scan(ac, torch.cat([xc[:, :, :1] + ac[:, :, :1] * h[:, :, None],
+                                           xc[:, :, 1:]], dim=2))
+        out.append(xc)
+        h = xc[:, :, -1]
+    return torch.cat(out, dim=2).reshape(dBu.shape)
+
+
+def scan_states(dA: torch.Tensor, dBu: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """`scan_states_plain`'s function over fp32 (B, L, ...) operands: kernel
+    J on a CUDA tensor, the plain version on a CPU tensor."""
+    if dA.device.type == "cpu":
+        return scan_states_plain(dA, dBu, reverse)
+    if (dA.dim() < 2 or dA.shape != dBu.shape or dA.dtype != torch.float32
+            or dBu.dtype != torch.float32 or dBu.device != dA.device):
+        raise ValueError("scan_states: dA and dBu must be fp32 (B, L, ...) of one shape on "
+                         "one device")
+    dA, dBu = dA.contiguous(), dBu.contiguous()
+    h = torch.empty_like(dA)
+    B, L = dA.shape[:2]
+    _kernels.call("scan_states", dA.data_ptr(), dBu.data_ptr(), h.data_ptr(), B, L,
+                  dA[0, 0].numel(), int(reverse), _kernels.stream_handle(dA.device))
+    return h
+
+
+def _states_operands(u, delta, A, Bmat, delta_bias, delta_softplus):
+    """The general route's fp32 operands (ops/pallas/scan.py `_forward`):
+    u, dt before and after the softplus (B, L, Dch), dA = exp(dt A) and dBu
+    = dt u B (B, L, Dch, N), and dt u (B, L, G, Cg)."""
+    B, L, Dch = u.shape
+    G, N = Bmat.shape[2], Bmat.shape[3]
+    uf, dt_in = u.float(), delta.float()
+    if delta_bias is not None:
+        dt_in = dt_in + delta_bias.float()
+    dt = softplus(dt_in) if delta_softplus else dt_in
+    dA = torch.exp(dt[..., None] * A.float())
+    dtu = (dt * uf).reshape(B, L, G, Dch // G)
+    dBu = (dtu[..., None] * Bmat.float()[:, :, :, None, :]).reshape(B, L, Dch, N)
+    return uf, dt_in, dt, dA, dtu, dBu
+
+
+class _StatesScan(torch.autograd.Function):
+    """The flat contract on the general route: the JAX package's
+    `selective_scan_pallas` (ops/pallas/scan.py:96-200) with kernel J for
+    its three state recurrences (`scan_states`: the plain version on CPU
+    tensors). Any N; the softplus of dt optional; any float dtype, computed
+    in fp32. Only the inputs are saved."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, Bmat, Cmat, D, delta_bias, delta_softplus):
+        ctx.save_for_backward(u, delta, A, Bmat, Cmat, D, delta_bias)
+        ctx.delta_softplus = delta_softplus
+        B, L, Dch = u.shape
+        G, N = Bmat.shape[2], Bmat.shape[3]
+        uf, _, _, dA, _, dBu = _states_operands(u, delta, A, Bmat, delta_bias, delta_softplus)
+        h = scan_states(dA, dBu)
+        y = torch.einsum("blgcn,blgn->blgc", h.reshape(B, L, G, Dch // G, N),
+                         Cmat.float()).reshape(B, L, Dch)
+        if D is not None:
+            y = y + uf * D.float()
+        return y.to(u.dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        u, delta, A, Bmat, Cmat, D, delta_bias = ctx.saved_tensors
+        B, L, Dch = u.shape
+        G, N = Bmat.shape[2], Bmat.shape[3]
+        Cg = Dch // G
+        uf, dt_in, dt, a, dtu, b = _states_operands(u, delta, A, Bmat, delta_bias,
+                                                    ctx.delta_softplus)
+        Af, Bf, Cf, gyf = A.float(), Bmat.float(), Cmat.float(), gy.float()
+        h = scan_states(a, b)                                       # recompute
+        # the reverse adjoint g_t = C_t dy_t + a_{t+1} g_{t+1}
+        c = (gyf.reshape(B, L, G, Cg)[..., None] * Cf[:, :, :, None, :]).reshape(B, L, Dch, N)
+        a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+        g = scan_states(a_next, c, reverse=True)
+        del c, a_next
+        h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+        g4, h4 = g.reshape(B, L, G, Cg, N), h.reshape(B, L, G, Cg, N)
+        dC = torch.einsum("blgc,blgcn->blgn", gyf.reshape(B, L, G, Cg), h4)
+        dD = (gyf * uf).sum((0, 1)) if D is not None else None
+        du = gyf * D.float() if D is not None else torch.zeros_like(uf)
+        gB = torch.einsum("blgcn,blgn->blgc", g4, Bf).reshape(B, L, Dch)
+        du = du + gB * dt
+        ddt = gB * uf
+        dB = torch.einsum("blgcn,blgc->blgn", g4, dtu)
+        gha = g * h_prev * a
+        ddt = ddt + torch.einsum("bldn,dn->bld", gha, Af)
+        dA = torch.einsum("bldn,bld->dn", gha, dt)
+        if ctx.delta_softplus:
+            ddt = ddt * torch.sigmoid(dt_in)
+        dbias = ddt.sum((0, 1)).to(delta_bias.dtype) if delta_bias is not None else None
+        return (du.to(u.dtype), ddt.to(delta.dtype), dA.to(A.dtype), dB.to(Bmat.dtype),
+                dC.to(Cmat.dtype), None if D is None else dD.to(D.dtype), dbias, None)
+
+
+def _fused_kernels_take(u, delta, Bmat, Cmat, delta_softplus) -> bool:
+    """Whether kernels H and I take the call: N = 16, the softplus of dt,
+    u, delta, B and C of one dtype, fp32 or bf16."""
+    return (delta_softplus and Bmat.shape[-1] == N_STATE
+            and u.dtype in (torch.float32, torch.bfloat16)
+            and all(t.dtype == u.dtype for t in (delta, Bmat, Cmat)))
+
+
 def selective_scan(u, delta, A, Bmat, Cmat, D=None, delta_bias=None, delta_softplus=False):
-    """The flat contract, (B, L, Dch) -> (B, L, Dch) in u's dtype: kernel H
-    (and its backward kernels) on a CUDA tensor, the plain version under
-    torch autograd on a CPU tensor. The kernels always take the softplus of
-    dt and are built for N = 16."""
+    """The flat contract, (B, L, Dch) -> (B, L, Dch) in u's dtype: on a CUDA
+    tensor kernel H (and its backward kernels) where it takes the call, the
+    general route (`_StatesScan`, kernel J) otherwise; the plain version
+    under torch autograd on a CPU tensor."""
     if u.device.type == "cpu":
         return selective_scan_plain(u, delta, A, Bmat, Cmat, D, delta_bias, delta_softplus)
-    if not delta_softplus:
-        raise ValueError("selective_scan: kernel H always takes the softplus of dt")
+    if not _fused_kernels_take(u, delta, Bmat, Cmat, delta_softplus):
+        return _StatesScan.apply(u, delta, A, Bmat, Cmat, D, delta_bias, delta_softplus)
     return _FlatScan.apply(u, delta, A, Bmat, Cmat, D, delta_bias)
 
 
 def cross_selective_scan(xs, dts, A, Bs, Cs, Ds=None, dt_bias=None, delta_softplus=True):
     """Direction-major selective scan, (B, K, L, Dk) -> (B, K, L, Dk) in
-    xs's dtype: kernel I (and its backward kernels) on a CUDA tensor, the
-    plain version under torch autograd on a CPU tensor. The kernels always
-    take the softplus of dt, as every SS2D does."""
+    xs's dtype: on a CUDA tensor kernel I (and its backward kernels) where
+    it takes the call, the general route (`_StatesScan` over the flat view)
+    otherwise; the plain version under torch autograd on a CPU tensor."""
     if xs.device.type == "cpu":
         return cross_selective_scan_plain(xs, dts, A, Bs, Cs, Ds, dt_bias, delta_softplus)
-    if not delta_softplus:
-        raise ValueError("cross_selective_scan: kernel I always takes the softplus of dt")
+    if not _fused_kernels_take(xs, dts, Bs, Cs, delta_softplus):
+        B, K, L, Dk = xs.shape
+        flat = lambda t: t.transpose(1, 2).reshape(B, L, K * t.shape[-1])
+        y = _StatesScan.apply(flat(xs), flat(dts), A, Bs.transpose(1, 2), Cs.transpose(1, 2),
+                              Ds, dt_bias, delta_softplus)
+        return y.reshape(B, L, K, Dk).transpose(1, 2)
     return _GroupedScan.apply(xs, dts, A, Bs, Cs, Ds, dt_bias)

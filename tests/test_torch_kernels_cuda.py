@@ -1,7 +1,9 @@
-"""The port's hand-written CUDA kernels (D, E, C, A-fwd, A-bwd, B, F and
-F-bwd, the layer at D = 128 and 64; the selective scan's I-fwd, I-ckpt and
-I-bwd, over the grouped layout (I) and the flat one (H), seeded; H-seg's
-carry and adjoint carry) against their plain versions, on the card. Marked
+"""The port's hand-written CUDA kernels (D, E, D-bwd, C, A-fwd, A-bwd, B
+in every padding mode and align_corners flag, F and F-bwd, the layer at
+D = 128 and 64; the selective scan's I-fwd, I-ckpt and I-bwd, over the
+grouped layout (I) and the flat one (H), seeded, at any number of rows;
+H-seg's carry and adjoint carry; the general scan's J) against their plain
+versions, on the card. Marked
 `cuda`; each test skips when no CUDA device is present (there is no
 interpret mode for a CUDA kernel). On a GPU machine without JAX,
 skip tests/conftest.py (it configures JAX):
@@ -219,6 +221,89 @@ def test_token_softmax_scatter_gradient_kernel_path_matches_plain(dev):
         _close(g, w, 1e-5, 1e-4)
 
 
+@pytest.mark.parametrize("C", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_token_scatter_bwd_kernel_matches_plain(dev, C, dtype):
+    """Kernel D-bwd: da to one rounding of its dtype, the fp32 summed
+    weight-gradient rows to 1e-4 relative (two gathers' sums added)."""
+    a, grid, ew_bar = _token_inputs(dev, C, dtype, 50 + C)
+    m = a.amax(dim=(1, 2)).float()
+    dz = torch.from_numpy(np.random.default_rng(C).normal(size=(4, C)).astype(np.float32)).to(dev)
+    before = _kernels.launches["token_scatter_bwd"]
+    da, dw = warp.token_scatter_bwd(a, grid, m, ew_bar, dz)
+    torch.cuda.synchronize()
+    assert _kernels.launches["token_scatter_bwd"] == before + 1 and da.dtype == dtype
+    da_p, dw_p = warp.token_scatter_bwd_plain(a.float(), grid, m, ew_bar.float(), dz)
+    _close(da, da_p, 1e-5, 1e-5 if dtype == torch.float32 else BF16_REL)
+    _close(dw, dw_p, 1e-5, 1e-4)
+
+
+def test_fused_token_chain_gradient_kernel_path_matches_plain(dev):
+    """The fused chain's whole VJP (da, dflow), fp32: kernels D and D-bwd
+    against the same Function with the plain ops (1e-4 of the largest
+    element, as the hybrid's test)."""
+    rng = np.random.default_rng(7)
+    a0 = rng.normal(size=(4, 32, 64, 8)).astype(np.float32)
+    flow0 = (rng.normal(size=(4, 32, 64, 2)) * 3).astype(np.float32)
+    r = torch.from_numpy(rng.normal(size=(4, 32, 64, 8)).astype(np.float32)).to(dev)
+    s = torch.from_numpy(rng.normal(size=(4, 8)).astype(np.float32)).to(dev)
+
+    def grads():
+        a = torch.from_numpy(a0).to(dev).requires_grad_()
+        flow = torch.from_numpy(flow0).to(dev).requires_grad_()
+        ew, zaw = warp.token_softmax_scatter(a, flow, train_chain="fused")
+        return torch.autograd.grad((ew * r).sum() + (zaw * s).sum(), (a, flow))
+
+    names = ("token_scatter_fwd", "token_scatter_bwd")
+    before = {n: _kernels.launches[n] for n in names}
+    got = grads()
+    torch.cuda.synchronize()
+    assert all(_kernels.launches[n] == before[n] + 1 for n in names)
+    saved = warp.token_scatter, warp.token_scatter_bwd
+    warp.token_scatter, warp.token_scatter_bwd = (warp.token_scatter_plain,
+                                                  warp.token_scatter_bwd_plain)
+    try:
+        want = grads()
+    finally:
+        warp.token_scatter, warp.token_scatter_bwd = saved
+    for g, w in zip(got, want):
+        _close(g, w, 1e-5, 1e-4)
+
+
+MODES = [("border", True), ("border", False), ("zeros", True), ("zeros", False)]
+
+
+@pytest.mark.parametrize("mode", MODES, ids=["border_align", "border_half", "zeros_align",
+                                             "zeros_half"])
+@pytest.mark.parametrize("C", [8, 32])
+def test_warp_kernels_in_each_mode_match_plain(dev, C, mode):
+    """A-fwd, B, C and A-bwd in each (padding_mode, align_corners) pair, fp32,
+    on a grid reaching beyond [-1, 1]: outputs to 1e-5, the weight-gradient
+    rows to 1e-4 (another summation order), and dgrid from them."""
+    g = torch.Generator(dev).manual_seed(C)
+    x = torch.randn(2, 24, 64, C, device=dev, generator=g)
+    other = torch.randn(2, 24, 64, C, device=dev, generator=g)
+    grid = torch.rand(2, 24, 64, 2, device=dev, generator=g) * 2.4 - 1.2
+    size = (24, 64)
+    pairs = (("grid_sample_fwd", warp.grid_sample(x, grid, *mode),
+              warp.grid_sample_plain(x, grid, *mode)),
+             ("grid_sample_transpose", warp.grid_sample_transpose(other, grid, size, *mode),
+              warp.grid_sample_transpose_plain(other, grid, size, *mode)),
+             ("grid_sample_t_vjp", warp.grid_sample_t_vjp(x, other, grid, *mode),
+              warp.grid_sample_t_vjp_plain(x, other, grid, *mode)),
+             ("grid_sample_bwd", warp.grid_sample_bwd(x, other, grid, *mode),
+              warp.grid_sample_bwd_plain(x, other, grid, *mode)))
+    torch.cuda.synchronize()
+    for name, got, want in pairs:
+        if isinstance(got, tuple):
+            _close(got[0], want[0], 1e-5, 1e-5)
+            _close(got[1], want[1], 1e-5, 1e-4)
+            _close(warp.corner_weights_vjp(grid, got[1], *size, *mode),
+                   warp.corner_weights_vjp(grid, want[1], *size, *mode), 1e-5, 1e-4)
+        else:
+            _close(got, want, 1e-5, 1e-5)
+
+
 @pytest.mark.parametrize("use_perm", [False, True], ids=["no_perm", "perm"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_xattn_layer_bwd_kernel_matches_plain(dev, use_perm, dtype):
@@ -373,12 +458,36 @@ def test_scan_bwd_kernels_match_autograd_of_plain(dev, shape):
         _close(g, w, 1e-6, 1e-4)
 
 
+def _no_softplus(args):
+    """The scan's inputs for a call without the softplus: dt = softplus(dts
+    + bias) taken here (dt >= 0, as the callers of such a call give it; a
+    negative dt makes exp(dt A) > 1 and the state grow without bound) and a
+    zero bias."""
+    args = list(args)
+    bias = args[6].reshape(args[1].shape[1], 1, -1) if args[1].dim() == 4 else args[6]
+    args[1] = scan.softplus(args[1].float() + bias).to(args[1].dtype)
+    args[6] = torch.zeros_like(args[6])
+    return args
+
+
 def test_scan_kernels_always_take_the_softplus(dev):
     """Kernel I is built for SS2D's dt = softplus(dts + bias); a CUDA call
-    without the softplus raises instead of computing another function."""
-    args = _scan_inputs(dev, (1, 4, 32, 16), 23)
-    with pytest.raises(ValueError, match="softplus"):
-        scan.cross_selective_scan(*args, delta_softplus=False)
+    without the softplus launches no kernel I and goes to the general route
+    (kernel J), which computes that other function: against the plain
+    version, y and the seven gradients, fp32."""
+    args = [a.requires_grad_() for a in _no_softplus(_scan_inputs(dev, (1, 4, 32, 16), 23))]
+    gy = torch.randn(1, 4, 32, 16, device=dev, generator=torch.Generator(dev).manual_seed(24))
+    before = dict(_kernels.launches)
+    y = scan.cross_selective_scan(*args, delta_softplus=False)
+    got = torch.autograd.grad(y, args, gy)
+    torch.cuda.synchronize()
+    runs = {n: c - before.get(n, 0) for n, c in _kernels.launches.items() if c != before.get(n, 0)}
+    assert runs == {"scan_states": 3}
+    want_y = scan.cross_selective_scan_plain(*args, delta_softplus=False)
+    want = torch.autograd.grad(want_y, args, gy)
+    _close(y, want_y, 1e-6, 1e-5)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-6, 1e-4)
 
 
 def _flat_inputs(dev, B, L, G, Cg, seed, dtype=torch.float32):
@@ -496,13 +605,94 @@ def test_segmented_scan_matches_sequential(dev, S):
 
 
 def test_flat_scan_raises_on_what_the_kernels_do_not_take(dev):
+    """Kernel H is built for N = 16 and the softplus of dt; the flat
+    contract on a CUDA tensor sends every other call to the general route
+    (kernel J) instead of raising, and no call raises for its number of
+    rows (65536 here, past the grid's y extent)."""
     args = _flat_inputs(dev, 1, 32, 2, 16, 38)
-    with pytest.raises(ValueError, match="softplus"):
-        scan.selective_scan(*args, delta_softplus=False)
+    before = _kernels.launches["scan_states"]
+    y = scan.selective_scan(*_no_softplus(args), delta_softplus=False)
+    _close(y, scan.selective_scan_plain(*_no_softplus(args), delta_softplus=False), 1e-6, 1e-5)
     small = args[:3] + [args[3][..., :8], args[4][..., :8]] + args[5:]
     small[2] = small[2][:, :8]
-    with pytest.raises(ValueError):                     # N = 8
-        scan.selective_scan(*small, delta_softplus=True)
+    y = scan.selective_scan(*small, delta_softplus=True)           # N = 8
+    torch.cuda.synchronize()
+    assert _kernels.launches["scan_states"] == before + 2
+    _close(y, scan.selective_scan_plain(*small, delta_softplus=True), 1e-6, 1e-5)
     big = _flat_inputs(dev, 32768, 16, 2, 16, 39)      # 65536 rows
-    with pytest.raises(ValueError, match="65535"):
-        scan.selective_scan(*big, delta_softplus=True)
+    before = _kernels.launches["selective_scan_fwd_flat"]
+    y = scan.selective_scan(*big, delta_softplus=True)
+    torch.cuda.synchronize()
+    assert _kernels.launches["selective_scan_fwd_flat"] == before + 1
+    _close(y, scan.selective_scan_plain(*big, delta_softplus=True), 1e-6, 1e-5)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+def test_scan_states_kernel_matches_plain(dev, reverse):
+    """Kernel J over fp32 (B, L, D*N) operands, L = 1000 (not a multiple of
+    its 16-step load batches), forward and reverse: 1e-5 of the largest
+    state (fp32, a sequential walk against a chunked doubling scan)."""
+    g = torch.Generator(dev).manual_seed(40 + reverse)
+    dA = torch.exp(-torch.rand(3, 1000, 100, device=dev, generator=g))
+    dBu = torch.randn(3, 1000, 100, device=dev, generator=g)
+    before = _kernels.launches["scan_states"]
+    h = scan.scan_states(dA, dBu, reverse)
+    torch.cuda.synchronize()
+    assert _kernels.launches["scan_states"] == before + 1
+    _close(h, scan.scan_states_plain(dA, dBu, reverse), 1e-6, 1e-5)
+
+
+@pytest.mark.parametrize("N", [4, 32])
+def test_states_scan_route_matches_plain(dev, N):
+    """The general route (`_StatesScan`: J once forward, twice backward) on
+    the flat contract with softplus off: y to 1e-5 and the seven gradients
+    to 1e-4 of their largest elements, fp32; bf16, fp16 and float64 inputs
+    give y within one rounding of their dtype (float64 computes in fp32)."""
+    rng = np.random.default_rng(N)
+    B, L, G, Cg = 2, 300, 2, 24
+
+    def f(*s, scale=1.0, off=0.0):
+        return torch.from_numpy((rng.normal(size=s) * scale + off).astype(np.float32)).to(dev)
+
+    args = [f(B, L, G * Cg), f(B, L, G * Cg, scale=0.5), -torch.exp(f(G * Cg, N, scale=0.5)),
+            f(B, L, G, N), f(B, L, G, N), f(G * Cg), f(G * Cg, scale=0.5, off=-3.0)]
+    args = [a.requires_grad_() for a in _no_softplus(args)]
+    gy = f(B, L, G * Cg)
+    before = _kernels.launches["scan_states"]
+    y = scan.selective_scan(*args, delta_softplus=False)
+    got = torch.autograd.grad(y, args, gy)
+    torch.cuda.synchronize()
+    assert _kernels.launches["scan_states"] == before + 3
+    want_y = scan.selective_scan_plain(*args, delta_softplus=False)
+    want = torch.autograd.grad(want_y, args, gy)
+    _close(y, want_y, 1e-6, 1e-5)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-6, 1e-4)
+    for dtype, rel in ((torch.bfloat16, BF16_REL), (torch.float16, 2.0 ** -11),
+                       (torch.float64, 1e-5)):
+        cast = [a.detach().to(dtype) for a in args]
+        y = scan.selective_scan(*cast, delta_softplus=False)
+        assert y.dtype == dtype
+        _close(y, scan.selective_scan_plain(*[a.float() for a in cast], delta_softplus=False),
+               1e-6, rel)
+
+
+@pytest.mark.parametrize("flat", [True, False], ids=["flat_H", "grouped_I"])
+def test_scan_kernels_take_more_rows_than_the_grid_y_extent(dev, flat):
+    """About 70000 rows of 16 steps: H (flat) and I (grouped) forward and
+    backward against the plain version, fp32."""
+    if flat:
+        args = _flat_inputs(dev, 35000, 16, 2, 16, 41)
+        fn, plain = scan.selective_scan, scan.selective_scan_plain
+    else:
+        args = _scan_inputs(dev, (17500, 4, 16, 16), 42)
+        fn, plain = scan.cross_selective_scan, scan.cross_selective_scan_plain
+    args = [a.requires_grad_() for a in args]
+    gy = torch.randn(args[0].shape, device=dev, generator=torch.Generator(dev).manual_seed(43))
+    y = fn(*args, delta_softplus=True)
+    got = torch.autograd.grad(y, args, gy)
+    want_y = plain(*args, delta_softplus=True)
+    want = torch.autograd.grad(want_y, args, gy)
+    _close(y, want_y, 1e-6, 1e-5)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-6, 1e-4)

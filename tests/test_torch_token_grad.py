@@ -1,10 +1,12 @@
 """The port's token-chain gradient (smow_net_tpu_torch/ops/warp.py
-`token_softmax_scatter`, the autograd Function over kernels E, C and A-bwd)
-and the plain versions of C and A-bwd against the JAX package on CPU.
+`token_softmax_scatter`: the hybrid autograd Function over kernels E, C and
+A-bwd, and the fused one over kernels D and D-bwd) and the plain versions of
+C and A-bwd against the JAX package on CPU.
 
-On a CPU tensor every op of the Function is its plain version, so these
-tests hold the plain E, C and A-bwd and the Function's chain rule to JAX's
-Pallas kernels in interpret mode (`token_scatter_hybrid_pallas`,
+On a CPU tensor every op of the Functions is its plain version, so these
+tests hold the plain E, C, A-bwd and D-bwd and the Functions' chain rules to
+JAX's Pallas kernels in interpret mode (`token_scatter_hybrid_pallas`,
+`token_scatter_pallas` with its `_tok_bwd`,
 `grid_sample_transpose_vjp_pallas`, `grid_sample_pallas`) and to JAX's XLA
 train chain.
 
@@ -31,8 +33,10 @@ import torch
 
 from smow_net_tpu.ops import warp as jwarp
 from smow_net_tpu.ops.pallas.warp import (grid_sample_pallas, grid_sample_transpose_vjp_pallas,
-                                          pallas_warp_supported, token_scatter_hybrid_pallas)
+                                          pallas_warp_supported, token_scatter_hybrid_pallas,
+                                          token_scatter_pallas)
 from smow_net_tpu_torch.ops import warp as twarp
+from test_torch_scan import one_torch_thread  # noqa: F401  (autouse: the port on one thread)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 FLOW_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -63,10 +67,10 @@ def _jax_grads(fn, a, flow, r, s):
     return np.asarray(da), np.asarray(dflow)
 
 
-def _port_grads(a, flow, r, s):
+def _port_grads(a, flow, r, s, train_chain=None):
     at = torch.from_numpy(a).requires_grad_()
     ft = torch.from_numpy(flow).requires_grad_()
-    ew, zaw = twarp.token_softmax_scatter(at, ft)
+    ew, zaw = twarp.token_softmax_scatter(at, ft, train_chain)
     loss = (ew * torch.from_numpy(r)).sum() + (zaw * torch.from_numpy(s)).sum()
     da, dflow = torch.autograd.grad(loss, (at, ft))
     return da.numpy(), dflow.numpy()
@@ -121,6 +125,67 @@ def test_token_chain_gradient_on_one_grid_matches_pallas_hybrid(shape, spike):
     _close_dgrid(dgrid, 2.0 * dgrid_j, ~inside)
     if spike:
         assert np.all(zaw.detach().numpy()[:, 0] == 0.0)
+
+
+@pytest.mark.parametrize("shape,spike", CASES, ids=IDS)
+def test_fused_token_chain_gradient_matches_pallas_fused_and_xla(shape, spike):
+    """train_chain="fused" (D forward, D-bwd backward; on CPU
+    `token_scatter_bwd_plain`): (da, dflow) against jax.vjp of JAX's
+    `token_scatter_pallas` (interpret mode, its `_tok_bwd` kernel) and of
+    the XLA train chain, at the hybrid chain's bounds."""
+    a, flow, r, s = _inputs(shape, 5, spike)
+    F_, H, W, C = shape
+    da, dflow = _port_grads(a, flow, r, s, "fused")
+    assert np.isfinite(da).all() and np.isfinite(dflow).all()
+    fused = lambda x, f: token_scatter_pallas(x, jwarp._flow_grid(f, H, W), True)
+    for fn in (fused, jwarp.token_softmax_scatter_train):
+        da_j, dflow_j = _jax_grads(fn, a, flow, r, s)
+        np.testing.assert_allclose(da, da_j, **FLOW_TOL)
+        np.testing.assert_allclose(dflow, dflow_j, **FLOW_TOL)
+    assert np.abs(dflow).max() > 1e-3, "dflow vanished: the check would be vacuous"
+
+
+@pytest.mark.parametrize("shape,spike", CASES, ids=IDS)
+def test_fused_token_chain_on_one_grid_matches_pallas_fused(shape, spike):
+    """The fused Function on the JAX-built grid: (ew, zaw) and (da, dgrid)
+    against `token_scatter_pallas` at 1e-5, dgrid off the border ties."""
+    a, flow, r, s = _inputs(shape, 6, spike)
+    F_, H, W, C = shape
+    grid = np.array(jwarp._flow_grid(jnp.asarray(flow), H, W))
+    at = torch.from_numpy(a).requires_grad_()
+    gt = torch.from_numpy(grid).requires_grad_()
+    ew, zaw = twarp._TokenSoftmaxScatterFused.apply(at, gt)
+    loss = (ew * torch.from_numpy(r)).sum() + (zaw * torch.from_numpy(s)).sum()
+    da, dgrid = (t.numpy() for t in torch.autograd.grad(loss, (at, gt)))
+    (ew_j, zaw_j), vjp = jax.vjp(lambda x, g: token_scatter_pallas(x, g, True),
+                                 jnp.asarray(a), jnp.asarray(grid))
+    np.testing.assert_allclose(ew.detach().numpy(), np.asarray(ew_j), **TOL)
+    np.testing.assert_allclose(zaw.detach().numpy(), np.asarray(zaw_j), **TOL)
+    da_j, dgrid_j = (np.asarray(t) for t in vjp((jnp.asarray(r), jnp.asarray(s))))
+    np.testing.assert_allclose(da, da_j, **TOL)
+    inside = _off_ties(grid)
+    _close_dgrid(dgrid, dgrid_j, inside)
+    assert (~inside).any()
+    _close_dgrid(dgrid, 2.0 * dgrid_j, ~inside)
+    if spike:
+        assert np.all(zaw.detach().numpy()[:, 0] == 0.0)
+
+
+def test_token_scatter_bwd_plain_is_the_autograd_of_the_plain_forward():
+    """D-bwd's plain version (da and the summed weight-gradient rows, carried
+    to dgrid) against torch autograd through `token_scatter_plain`."""
+    a, flow, r, s = _inputs((2, 16, 16, 8), 7)
+    grid = twarp.flow_grid(torch.from_numpy(flow), 16, 16)
+    at = torch.from_numpy(a).requires_grad_()
+    gt = grid.clone().requires_grad_()
+    m = at.detach().amax(dim=(1, 2))
+    ew, zaw = twarp.token_scatter_plain(at, gt, m)
+    rt, st = torch.from_numpy(r), torch.from_numpy(s)
+    da_a, dgrid_a = torch.autograd.grad((ew * rt).sum() + (zaw * st).sum(), (at, gt))
+    da, dw = twarp.token_scatter_bwd_plain(at.detach(), grid, m, rt, st)
+    np.testing.assert_allclose(da.numpy(), da_a.numpy(), **TOL)
+    np.testing.assert_allclose(twarp.corner_weights_vjp(grid, dw, 16, 16).numpy(),
+                               dgrid_a.numpy(), rtol=1e-5, atol=1e-5 * dgrid_a.abs().max().item())
 
 
 def _sample_inputs(C, seed):

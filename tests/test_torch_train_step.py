@@ -19,7 +19,9 @@ in fp64, 1.1e-3. In float64 no activation comes that close to a kink.
 
 On the CPU the port's token chain and decoder layer take their plain versions (their gradients are held to the Pallas
 kernels in tests/test_torch_token_grad.py and tests/test_torch_xattn_grad.py);
-JAX's train path runs its CPU lowering (XLA).
+JAX's train path runs its CPU lowering (XLA). (a) and (b) run the port on
+its default token train chain and on the fused one (`token_train_chain`),
+against one JAX computation.
 
 Bounds, each with its reason:
   (a) parameter gradients: per leaf, 1e-4 of the leaf's largest |g| (the
@@ -61,6 +63,7 @@ from smow_net_tpu_torch.train.convert import state_dict_from_jax
 from smow_net_tpu_torch.train.loss import bce_dice_loss
 from smow_net_tpu_torch.train.trainer import (Optimizer, create_train_state, make_optimizer,
                                               make_train_step, select_pred)
+from test_torch_scan import one_torch_thread  # noqa: F401  (autouse: the port on one thread)
 from test_torch_smow_net import _seeded
 
 SIZE, BATCH = 64, 2
@@ -101,16 +104,17 @@ def setup():
     return model, variables, batch
 
 
-def _port_model(variables, dtype=torch.float64):
-    port = get_model("smow_net", device="cpu")
+def _port_model(variables, dtype=torch.float64, **kwargs):
+    port = get_model("smow_net", device="cpu", **kwargs)
     port.load_state_dict(state_dict_from_jax(variables), strict=True)
     return port.to(dtype)
 
 
 @pytest.fixture(scope="module")
-def grads(setup):
-    """(a) and (b): loss, gradients and updated BN statistics of one train
-    forward/backward on each side."""
+def jax_grads(setup):
+    """(a) and (b), JAX's side: loss, gradients and updated BN statistics of
+    one train forward/backward (XLA on CPU takes the unfused token chain,
+    the same function as each of the port's chains)."""
     model, variables, batch = setup
     with _x64():
         jb = {k: jnp.asarray(v) for k, v in _f64(batch).items()}
@@ -125,9 +129,17 @@ def grads(setup):
         (loss_j, mut), g_j = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
             _f64(variables["params"]))
         g_j, stats_j, loss_j = _f64(g_j), _f64(mut["batch_stats"]), float(loss_j)
-    want = state_dict_from_jax({"params": g_j, "batch_stats": stats_j})
+    return loss_j, state_dict_from_jax({"params": g_j, "batch_stats": stats_j})
 
-    port = _port_model(variables)
+
+@pytest.fixture(scope="module", params=[None, "fused"], ids=["default_chain", "fused_chain"])
+def grads(request, setup, jax_grads):
+    """(a) and (b): the port's side on the token train chain that
+    `token_train_chain` names (None: the JAX package's shape rule, the
+    hybrid at this size; "fused": D and D-bwd), against JAX's."""
+    _, variables, batch = setup
+    loss_j, want = jax_grads
+    port = _port_model(variables, token_train_chain=request.param)
     port.train()
     t = lambda k: torch.from_numpy(batch[k]).double()
     pred = select_pred(port(t("A").permute(0, 3, 1, 2), t("B").permute(0, 3, 1, 2)))

@@ -10,6 +10,12 @@ ops, and the two autograd Functions and the chain to jax.vjp of JAX's
 `flow_warp`, `flow_warp_transpose` and `token_softmax_scatter_train` (on
 CPU JAX runs the unfused chain, smow_net_tpu/ops/warp.py:291).
 
+The four (padding_mode, align_corners) pairs of the warps and their VJPs
+(kernels A-fwd, B, C and A-bwd take them all) are held the same way at
+C = 8 and 32: on random grids beyond [-1, 1] no coordinate sits exactly on
+a clamp bound, so dgrid is compared everywhere, to 1e-5 of its largest
+element (d/di = dw1 - dw0 cancels).
+
 Tolerance 1e-5 (rtol and atol) in fp32, as tests/test_pallas_warp.py uses:
 both sides lerp in fp32 and differ in summation order. From a flow field
 torch's and jnp's linspace differ by up to 1 ulp, which moves a sample by up
@@ -24,9 +30,11 @@ import torch
 
 from smow_net_tpu.ops import warp as jwarp
 from smow_net_tpu.ops.pallas.warp import (grid_sample_pallas, grid_sample_transpose_pallas,
+                                          grid_sample_transpose_vjp_pallas,
                                           pallas_warp_supported)
 from smow_net_tpu_torch.ops import _kernels
 from smow_net_tpu_torch.ops import warp as twarp
+from test_torch_scan import one_torch_thread  # noqa: F401  (autouse: the port on one thread)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 FLOW_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -83,6 +91,71 @@ def test_grid_sample_transpose_plain_matches_pallas_and_xla(C):
                                         "border", True)     # XLA on the CPU
     np.testing.assert_allclose(out, np.asarray(ref_p), **TOL)
     np.testing.assert_allclose(out, np.asarray(ref_x), **TOL)
+
+
+MODES = [("border", True), ("border", False), ("zeros", True), ("zeros", False)]
+MODE_IDS = ["border_align", "border_half", "zeros_align", "zeros_half"]
+
+
+def _mode_inputs(C, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, 16, 16, C)).astype(np.float32)
+    g = rng.normal(size=(2, 16, 16, C)).astype(np.float32)
+    grid = rng.uniform(-1.2, 1.2, size=(2, 16, 16, 2)).astype(np.float32)
+    return x, g, grid
+
+
+def _close_dgrid(got, want):
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("C", [8, 32])
+def test_warp_modes_match_pallas_and_xla(C, mode):
+    """Plain A-fwd and B in each padding mode and align_corners flag against
+    the Pallas `_kernel` and `_t_kernel` (interpret mode) and JAX's XLA
+    `grid_sample` and `grid_sample_transpose`."""
+    x, g, grid = _mode_inputs(C, 20 + C)
+    assert pallas_warp_supported(x.shape, grid.shape)
+    xt, gt, grt = map(torch.from_numpy, (x, g, grid))
+    out = twarp.grid_sample_plain(xt, grt, *mode).numpy()
+    np.testing.assert_allclose(out, np.asarray(grid_sample_pallas(
+        jnp.asarray(x), jnp.asarray(grid), *mode, True)), **TOL)
+    np.testing.assert_allclose(out, np.asarray(jwarp.grid_sample(
+        jnp.asarray(x), jnp.asarray(grid), *mode)), **TOL)
+    out_t = twarp.grid_sample_transpose_plain(gt, grt, (16, 16), *mode).numpy()
+    np.testing.assert_allclose(out_t, np.asarray(grid_sample_transpose_pallas(
+        jnp.asarray(g), jnp.asarray(grid), (16, 16), *mode, True)), **TOL)
+    np.testing.assert_allclose(out_t, np.asarray(jwarp.grid_sample_transpose(
+        jnp.asarray(g), jnp.asarray(grid), (16, 16), *mode)), **TOL)
+
+
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("C", [8, 32])
+def test_warp_vjps_in_each_mode_match_pallas(C, mode):
+    """Plain A-bwd and C with `corner_weights_vjp` in each mode: (dx, dgrid)
+    against jax.vjp of `grid_sample_pallas` (its `_bwd_kernel`), (dg, dgrid)
+    against `grid_sample_transpose_vjp_pallas` (`_t_vjp_kernel`), both in
+    interpret mode, and both dgrids against jax.vjp of XLA's `grid_sample`."""
+    x, gy, grid = _mode_inputs(C, 40 + C)
+    xt, gyt, grt = map(torch.from_numpy, (x, gy, grid))
+    dx, dw = twarp.grid_sample_bwd_plain(xt, gyt, grt, *mode)
+    dgrid = twarp.corner_weights_vjp(grt, dw, 16, 16, *mode).numpy()
+    _, vjp = jax.vjp(lambda xx, gg: grid_sample_pallas(xx, gg, *mode, True),
+                     jnp.asarray(x), jnp.asarray(grid))
+    dx_j, dgrid_j = (np.asarray(t) for t in vjp(jnp.asarray(gy)))
+    np.testing.assert_allclose(dx.numpy(), dx_j, **TOL)
+    _close_dgrid(dgrid, dgrid_j)
+    _, vjp_x = jax.vjp(lambda xx, gg: jwarp.grid_sample(xx, gg, *mode),
+                       jnp.asarray(x), jnp.asarray(grid))
+    _close_dgrid(dgrid, np.asarray(vjp_x(jnp.asarray(gy))[1]))
+    assert np.abs(dgrid_j).max() > 1e-3, "dgrid vanished: the check would be vacuous"
+    # kernel C: the scatter op's VJP, with xbar = x and the primal g = gy
+    dg, dw_c = twarp.grid_sample_t_vjp_plain(xt, gyt, grt, *mode)
+    dg_j, dgrid_tj = grid_sample_transpose_vjp_pallas(
+        jnp.asarray(gy), jnp.asarray(grid), jnp.asarray(x), *mode, interpret=True)
+    np.testing.assert_allclose(dg.numpy(), np.asarray(dg_j), **TOL)
+    _close_dgrid(twarp.corner_weights_vjp(grt, dw_c, 16, 16, *mode).numpy(), np.asarray(dgrid_tj))
 
 
 def test_new_wrappers_route_cpu_tensors_to_the_plain_versions():
@@ -175,4 +248,4 @@ def test_train_chain_rule_picks_by_shape():
         ew_h, _ = twarp.token_softmax_scatter(at, ft, train_chain="hybrid")
         np.testing.assert_allclose(ew_u.detach().numpy(), ew_h.detach().numpy(), **TOL)
     with pytest.raises(ValueError):
-        twarp.token_softmax_scatter(at, ft, train_chain="fused")
+        twarp.token_softmax_scatter(at, ft, train_chain="bogus")
