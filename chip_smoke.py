@@ -34,6 +34,20 @@ Phases (any failure raises and exits non-zero; no result line is printed):
   4b. kernel F-bwd vs torch.autograd.grad of the plain layer: all 14 input
      gradients at (16, 16384, D) with and without the permutation, fp32
      and bf16, and the ragged N = 1000, at D = 128 and D = 64
+  4c. kernel G (`cross_attn_fwd`, the layer's attention sublayer alone; an
+     op path, no model runs it) vs `cross_attn_head1_plain`, fp32 (1e-5 of
+     the largest output) and bf16: (16, 16384, D) at D = 128 and 64 with no
+     permutation, the decoder's lane fold and a random one; D = 256, 384
+     and 512 at (2, 4096, D); the ragged (2, 1000, D) at every built width;
+     head 0's logits ~1e3 above the others' (one softmax shift per (pixel,
+     head)); one launch per call; an unbuilt (h, M), D = 96 and fp16 raise
+     ValueError; then its bf16 time at (16, 16384, 128)
+  4d. kernel G-bwd (`cross_attn_bwd`) vs torch.autograd.grad of the plain
+     version in fp32: all eight input gradients at the cases of 4c (fp32 at
+     1e-4 of each leaf's largest element), one launch per backward; then
+     its bf16 time. No later phase may launch G or G-bwd: every counter
+     reset (phases 5, 7, 8b, 9, 11, 15, 17, 21, 23, 24) and phase 25 check
+     it
   5. main path: get_model("smow_net") with numpy-seeded weights in bf16,
      make_eval_step over 3 batches of 16 x 256^2 pairs; each kernel's launch
      count must rise by exactly one per batch; then ms/batch (CUDA events)
@@ -919,7 +933,7 @@ def phase_kernel_f_bwd(dev, D: int) -> dict:
             err, args, gy = compare(f"(16,16384,{D}) perm={use_perm}", args32, gy32, perm, dt)
             if dt == torch.bfloat16 and not use_perm:
                 result["max_abs_err"] = err
-                result["ms"] = cuda_ms(lambda: xattn._layer_bwd(args, gy, scale, None, 1e-5))
+                result["ms"] = cuda_ms(lambda: xattn._kernel_bwd(args, gy, scale, None, 1e-5))
                 out = xattn.cross_layer_head1_plain(*args, scale=scale)
                 result["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
                     out, args, gy, retain_graph=True))
@@ -933,6 +947,201 @@ def phase_kernel_f_bwd(dev, D: int) -> dict:
             torch.from_numpy(np.random.default_rng(7).normal(
                 size=(2, 1000, D)).astype(np.float32)).to(dev), None, torch.float32)
     return result
+
+
+G_KERNELS = ("cross_attn_fwd", "cross_attn_bwd")
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0. Kernels G and G-bwd run only on their op
+    path (phases 4c and 4d, which take their counts and zero them): each
+    reset first checks that no phase since the last one launched them."""
+    from smow_net_tpu_torch.ops import _kernels
+
+    runs = {n: _kernels.launches[n] for n in G_KERNELS if _kernels.launches[n]}
+    require(not runs, f"a model or plain path launched kernel G or G-bwd: {runs}")
+    _kernels.launches.clear()
+
+
+def _attn_args(dev, B, N, D, h=8, M=8, seed=8, spread=False):
+    """Kernel G's 8 inputs (the decoder layer's first 8) and a cotangent,
+    numpy-seeded; with `spread`, head 0's keys scaled by 1e4, so that its
+    logits lie ~1e3 above the other heads' (a shared per-pixel softmax shift
+    would underflow those heads to o = 0)."""
+    rng = np.random.default_rng(seed)
+
+    def f(*s, scale=1.0, off=0.0):
+        return torch.from_numpy((rng.normal(size=s) * scale + off).astype(np.float32)).to(dev)
+
+    args = [f(B, N, D), f(D, scale=0.2, off=1.0), f(D, scale=0.1), f(D, h, scale=0.1),
+            f(B, M, h), f(B, M, h), f(h, D, scale=0.1), f(D, scale=0.1)]
+    if spread:
+        args[4][..., 0] *= 1e4
+    return args, f(B, N, D)
+
+
+def _random_perm(dev, D, seed=9):
+    p = np.zeros((D, D), np.float32)
+    p[np.arange(D), np.random.default_rng(seed).permutation(D)] = 1.0
+    return torch.from_numpy(p).to(dev)
+
+
+def _attn_flops(B, N, D, h=8, M=8, backward=False):
+    """FLOPs of the attention sublayer per call: per row the two
+    projections (2 D h each), the softmax over M and o, LayerNorm and the
+    residual; the backward recomputes q and o and adds do, dxn, dwq and dwo
+    (2 D h each), the softmax's and LayerNorm's backward."""
+    if backward:
+        return B * N * (12 * D * h + 16 * h * M + 20 * D)
+    return B * N * (4 * D * h + 6 * h * M + 10 * D)
+
+
+def _attn_cases(dev):
+    """(label, args, cotangent, perm, dtypes) of phases 4c and 4d: the full
+    width (16, 16384, D) at D = 128 and 64 with no permutation, the
+    decoder's lane fold and a random one; D = 256, 384 and 512 at (2, 4096,
+    D); the ragged N = 1000 at every built width; the logit spread."""
+    from smow_net_tpu_torch.ops import xattn
+
+    both, fp32 = (torch.float32, torch.bfloat16), (torch.float32,)
+    for D in (128, 64):
+        args, gy = _attn_args(dev, 16, 16384, D)
+        for kind, perm in (("none", None), ("decoder", _decoder_perm(dev, D)),
+                           ("random", _random_perm(dev, D))):
+            yield f"(16,16384,{D}) perm={kind}", args, gy, perm, both
+    for D in (256, 384, 512):
+        args, gy = _attn_args(dev, 2, 4096, D, seed=D)
+        for kind, perm in (("none", None), ("random", _random_perm(dev, D))):
+            yield f"(2,4096,{D}) perm={kind}", args, gy, perm, both
+    for D, _, _ in xattn._ATTN_SHAPES:
+        args, gy = _attn_args(dev, 2, 1000, D, seed=D + 1)
+        yield f"ragged (2,1000,{D}) perm=random", args, gy, _random_perm(dev, D), fp32
+    args, gy = _attn_args(dev, 2, 4096, 128, seed=10, spread=True)
+    yield "spread (2,4096,128) perm=none", args, gy, None, both
+
+
+def phase_kernel_g(dev) -> tuple:
+    """Kernel G (`cross_attn_fwd`) vs `cross_attn_head1_plain`: an op path,
+    since no model runs the attention sublayer alone. Returns G's row and
+    the number of launches its checks made (one per call, checked)."""
+    from smow_net_tpu_torch.ops import _kernels, xattn
+
+    log("phase 4c: kernel G cross_attn_fwd vs cross_attn_head1_plain (op path)")
+    t0 = time.perf_counter()
+    before, calls = _kernels.launches["cross_attn_fwd"], 0
+    for label, args32, _, perm, dtypes in _attn_cases(dev):
+        scale = args32[0].shape[-1] ** -0.5
+        for dt in dtypes:
+            # weights too at bf16 values, so the fp32 plain run sees the same numbers
+            args = [a.to(dt) for a in args32]
+            out = xattn.cross_attn_head1(*args, scale=scale, perm=perm)
+            calls += 1
+            want = xattn.cross_attn_head1_plain(*[a.float() for a in args], scale=scale,
+                                                perm=perm)
+            require(out.dtype == dt, f"{label}: output dtype {out.dtype}")
+            if dt == torch.float32:
+                check(f"{label} fp32", out, want, 0.0, 1e-5)
+            else:
+                check(f"{label} bf16", out, want, 1e-4, BF16_REL)
+    torch.cuda.synchronize()
+    require(_kernels.launches["cross_attn_fwd"] == before + calls,
+            f"kernel G launched once per call: {_kernels.launches['cross_attn_fwd'] - before} "
+            f"launches for {calls} calls")
+    args32, _ = _attn_args(dev, 2, 64, 128)
+    for bad, why in ((_attn_args(dev, 2, 64, 128, h=16)[0], "h = 16"),
+                     (_attn_args(dev, 2, 64, 128, M=16)[0], "M = 16"),
+                     (_attn_args(dev, 2, 64, 96)[0], "D = 96"),
+                     ([a.half() for a in args32], "float16")):
+        try:
+            xattn.cross_attn_head1(*bad, scale=0.1)
+        except ValueError as e:
+            log(f"  {why}: ValueError ({e})")
+        else:
+            raise RuntimeError(f"kernel G's wrapper took {why}, which it is not built for")
+
+    # time, bf16 at SMOW_Net's decoder shape, no permutation
+    args32, _ = _attn_args(dev, 16, 16384, 128)
+    args = [a.to(torch.bfloat16) for a in args32]
+    scale = 128 ** -0.5
+    call = lambda: xattn.cross_attn_head1(*args, scale=scale)
+    out = call()
+    want = xattn.cross_attn_head1_plain(*[a.float() for a in args], scale=scale)
+    result = {"max_abs_err": check("timed (16,16384,128) bf16", out, want, 1e-4, BF16_REL)}
+    result["ms"] = graph_ms(call)
+    result["plain_ms"] = graph_ms(lambda: xattn.cross_attn_head1_plain(*args, scale=scale))
+    result.update(bound(nbytes(args[0], out, *[a.float() for a in args[1:]]),
+                        _attn_flops(16, 16384, 128)), library_ms=None)
+    log(f"  bf16 time: kernel {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms, "
+        f"bound {result['bound_ms']:.4f} ms ({result['bound_by']}) (CUDA graph of 20 calls); "
+        f"kernel alone {kernel_only_ms(call, 'cross_attn_fwd'):.4f} ms (profiler); 20 calls "
+        f"between events {cuda_ms(call):.4f} ms; no PyTorch call computes G (SDPA covers "
+        "only the softmax . v core, not the LayerNorm, projections and residual)")
+    log(f"  phase 4c took {time.perf_counter() - t0:.1f} s")
+    _kernels.launches["cross_attn_fwd"] = 0
+    return result, calls
+
+
+def phase_kernel_g_bwd(dev) -> tuple:
+    """Kernel G-bwd (`cross_attn_bwd`): all eight input gradients against
+    torch.autograd.grad of the plain version in fp32 on the same inputs.
+    Returns G-bwd's row and the number of launches its checks made."""
+    from smow_net_tpu_torch.ops import _kernels, xattn
+
+    log("phase 4d: kernel G-bwd cross_attn_bwd vs autograd of cross_attn_head1_plain "
+        "(op path)")
+    t0 = time.perf_counter()
+    names = ("x", "ln_scale", "ln_bias", "wq", "k", "v", "w_out", "b_out")
+    before = {n: _kernels.launches[n] for n in G_KERNELS}
+    calls = 0
+    for label, args32, gy32, perm, dtypes in _attn_cases(dev):
+        scale = args32[0].shape[-1] ** -0.5
+        for dt in dtypes:
+            args = [a.to(dt).requires_grad_() for a in args32]
+            gy = gy32.to(dt)
+            got = torch.autograd.grad(xattn.cross_attn_head1(*args, scale=scale, perm=perm),
+                                      args, gy)
+            calls += 1
+            ref = [a.detach().float().requires_grad_() for a in args]
+            want = torch.autograd.grad(
+                xattn.cross_attn_head1_plain(*ref, scale=scale, perm=perm), ref, gy.float())
+            for n, g, w, a in zip(names, got, want, args):
+                require(g.dtype == a.dtype and g.shape == a.shape, f"{label} d{n}: "
+                        f"{g.dtype} {tuple(g.shape)}")
+                if dt == torch.float32:
+                    check(f"{label} fp32 d{n}", g, w, 0.0, 1e-4)
+                else:
+                    check(f"{label} bf16 d{n}", g, w, 1e-5, BF16_REL)
+    torch.cuda.synchronize()
+    runs = {n: _kernels.launches[n] - before[n] for n in G_KERNELS}
+    require(runs == dict.fromkeys(G_KERNELS, calls),
+            f"kernels G and G-bwd launched once per forward and backward: {runs} for {calls}")
+
+    # time, bf16 at SMOW_Net's decoder shape, no permutation: G-bwd alone
+    # (the wrapper's backward) and the plain backward
+    args32, gy32 = _attn_args(dev, 16, 16384, 128)
+    args = [a.to(torch.bfloat16).requires_grad_() for a in args32]
+    gy = gy32.to(torch.bfloat16)
+    scale = 128 ** -0.5
+    got = torch.autograd.grad(xattn.cross_attn_head1(*args, scale=scale), args, gy)
+    ref = [a.detach().float().requires_grad_() for a in args]
+    want = torch.autograd.grad(xattn.cross_attn_head1_plain(*ref, scale=scale), ref, gy.float())
+    result = {"max_abs_err": max(check(f"timed (16,16384,128) bf16 d{n}", g, w, 1e-5, BF16_REL)
+                                 for n, g, w in zip(names, got, want))}
+    call = lambda: xattn._kernel_bwd(args, gy, scale, None, 1e-5)
+    result["ms"] = graph_ms(call)
+    out = xattn.cross_attn_head1_plain(*args, scale=scale)
+    result["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(out, args, gy, retain_graph=True))
+    weights = [a.detach().float() for a in args[1:]]
+    result.update(bound(nbytes(args[0], gy, args[0], *weights, *weights),
+                        _attn_flops(16, 16384, 128, backward=True)), library_ms=None)
+    log(f"  bf16 time: kernel {result['ms']:.4f} ms (CUDA graph of 20 calls), plain backward "
+        f"{result['plain_ms']:.4f} ms (CUDA events), bound {result['bound_ms']:.4f} ms "
+        f"({result['bound_by']}); kernel alone {kernel_only_ms(call, 'cross_attn_bwd'):.4f} ms "
+        f"(profiler); 20 calls between events {cuda_ms(call):.4f} ms")
+    log(f"  phase 4d took {time.perf_counter() - t0:.1f} s")
+    for n in G_KERNELS:
+        _kernels.launches[n] = 0
+    return result, calls
 
 
 # (B, K, L, Dk) of every selective-scan call in one ChangeMamba forward at
@@ -1478,7 +1687,7 @@ def phase_scan_states(dev) -> tuple:
         "backward) vs selective_scan_plain, (B, L, G, Cg) = (4, 2048, 2, 32), N in {1, 4, 8, "
         "16, 32}, softplus on and off (fp32: y 1e-5, the seven gradients 1e-4 of each largest "
         "element; bf16, fp16: y to one rounding; float64: y to 1e-5)")
-    _kernels.launches.clear()
+    reset_launches()
     for N in (1, 4, 8, 16, 32):
         for softplus in (True, False):
             args = [a.requires_grad_() for a in _states_args(dev, 4, 2048, 2, 32, N, softplus,
@@ -1695,7 +1904,7 @@ def phase_main_path(dev, name: str, phase: int, rounds: int, per_round: int = 5)
     step(batches[0])                                     # warm-up (cuDNN plans)
     torch.cuda.synchronize()
 
-    _kernels.launches.clear()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     cm_total = torch.zeros(2, 2, device=dev)
     for i, batch in enumerate(batches):
@@ -1922,7 +2131,7 @@ def phase_train(dev, name: str, phase: int, rounds: int, per_round: int = 5,
     stats0 = {n: b.detach().clone() for n, b in model.named_buffers() if "running" in n}
     torch.cuda.synchronize()
 
-    _kernels.launches.clear()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     losses = []
     for i in range(steps):
@@ -2018,7 +2227,7 @@ def phase_token_chains(dev, rounds: int = 2, per_round: int = 5) -> dict:
     batch = make_batches(dev, 1, 16, 256, seed=8)[0]
     model.token_train_chain = "fused"
     torch.cuda.synchronize()
-    _kernels.launches.clear()
+    reset_launches()
     losses = []
     for i in range(steps):
         losses.append(float(step(state, batch)))
@@ -2202,6 +2411,8 @@ def main() -> None:
     phase_ofw_route(dev)
     f = {D: phase_kernel_f(dev, D) for D in (128, 64)}
     fb = {D: phase_kernel_f_bwd(dev, D) for D in (128, 64)}
+    g, g_launches = phase_kernel_g(dev)
+    gb, gb_launches = phase_kernel_g_bwd(dev)
     launches = phase_main_path(dev, "smow_net", 5, rounds=4)
     phase_fp32_model(dev, "smow_net", 6)
     train_launches = phase_train(dev, "smow_net", 7, rounds=2)
@@ -2242,6 +2453,7 @@ def main() -> None:
     require(all(cdm_train.get(n, 0) > 0 for n in SEG_KERNELS),
             "CD-Mamba's train step launched the carry and adjcarry kernels")
     j_launches, j = phase_scan_states(dev)
+    reset_launches()            # and no phase since phase 24's reset launched G or G-bwd
 
     log("phase 25: results (launches: D and F at D = 128 from SMOW_Net's eval path (phase "
         "5), E, C, A-bwd and F-bwd at D = 128 from its train step (phase 7), A-fwd and B "
@@ -2256,7 +2468,9 @@ def main() -> None:
         f"{cm_train_launches['selective_scan_fwd']} times, CD-Mamba's H-fwd "
         f"{cdm_train['selective_scan_fwd_flat']} times; D-bwd from SMOW_Net's train step on "
         f"the fused chain (phase 8b, 3 steps), J from the general route's checks (phase 24), "
-        "an op path: no model has N != 16 or the softplus off)")
+        "an op path: no model has N != 16 or the softplus off; G and G-bwd from their checks "
+        "(phases 4c and 4d), an op path: no model runs the attention sublayer alone, and "
+        "every counter reset from phase 5 on found them at 0)")
     csrc, pallas = "smow_net_tpu_torch/csrc/", "smow_net_tpu/ops/pallas/"
 
     def row(name, source, replaces, launch_count, numbers, **extra):
@@ -2303,6 +2517,8 @@ def main() -> None:
         row("token_scatter_bwd", "token_scatter.cu", "warp.py:807",
             fused_launches["token_scatter_bwd"], dbwd),
         row("scan_states", "scan_states.cu", "scan.py:122", j_launches, j),
+        row("cross_attn_fwd", "cross_attn.cu", "xattn.py:211", g_launches, g),
+        row("cross_attn_bwd", "cross_attn_bwd.cu", "xattn.py:234", gb_launches, gb),
     ]
     require(all(k["launches"] > 0 for k in kernels), "every kernel of the JSON line launched")
     print(json.dumps({"kernels": kernels}))

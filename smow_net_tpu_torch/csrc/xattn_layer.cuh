@@ -1,7 +1,11 @@
 // Shared pieces of kernel F (xattn_layer.cu) and its backward
-// (xattn_layer_bwd.cu): the sizes built into both, their parameters, and the
-// forward steps the backward recomputes per row tile, so both run the same
-// arithmetic in the same order.
+// (xattn_layer_bwd.cu), and of kernel G (cross_attn.cu, the layer's attention
+// sublayer alone) and its backward (cross_attn_bwd.cu): the sizes built into
+// them, their parameters, and the forward steps the backward kernels
+// recompute per row tile, so all four run the same arithmetic in the same
+// order. The row-tile steps take the tile's row count kRows as a template
+// argument (F's 64, kTile, by default; G's wider rows need fewer to fit a
+// block's shared memory).
 #pragma once
 
 #include "common.cuh"
@@ -9,16 +13,19 @@
 namespace smow {
 namespace xlayer {
 
-// Widths built into both kernels: kD in {64, 128} (SMOW_Net_LW's and
-// SMOW_Net's decoders), hidden = 2 kD; every function below takes kD as a
-// template argument.
+// Widths built into F and F-bwd: kD in {64, 128} (SMOW_Net_LW's and
+// SMOW_Net's decoders), hidden = 2 kD; G and G-bwd take kD in {64, 128, 256,
+// 384, 512}. Every function below takes kD as a template argument.
 constexpr int kHeads = 8;
 constexpr int kM = 8;         // memory tokens
-constexpr int kTile = 64;     // pixel rows per block
+constexpr int kTile = 64;     // pixel rows per block (F, F-bwd)
 constexpr int kChunk = 64;    // hidden units staged per step
 constexpr int kThreads = 256;
 template <int kD> constexpr int kHidden = 2 * kD;
 template <int kD> constexpr int kRow = kD + 4;  // padded smem row stride (bank spread)
+// G's and G-bwd's rows per tile: two (kRows, kRow) fp32 tiles take 67 KB at
+// kD = 128 with 64 rows, and 132 KB at kD = 512 with 32
+template <int kD> constexpr int kAttnRows = kD >= 256 ? 32 : 64;
 
 struct Params {
   const int* perm;
@@ -28,13 +35,13 @@ struct Params {
   float eps;
 };
 
-// Rows n0 .. n0 + kTile of one batch's (N, kD) matrix into smem (stride
+// Rows n0 .. n0 + kRows of one batch's (N, kD) matrix into smem (stride
 // kRow<kD>) as fp32, with the lane permutation as an index gather (dst[d] =
 // src[perm[d]]); rows past N are zeros.
-template <int kD, typename T>
+template <int kD, int kRows = kTile, typename T>
 __device__ __forceinline__ void load_tile(const T* __restrict__ src, const int* __restrict__ perm,
                                           int n0, int N, float* dst) {
-  for (int i = threadIdx.x; i < kTile * kD; i += kThreads) {
+  for (int i = threadIdx.x; i < kRows * kD; i += kThreads) {
     const int r = i / kD, d = i % kD, n = n0 + r;
     float v = 0.f;
     if (n < N) v = to_float(src[(size_t)n * kD + (perm ? __ldg(perm + d) : d)]);
@@ -42,17 +49,17 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, const int* 
   }
 }
 
-// LayerNorm of kTile rows of `src` into `dst` (both smem, stride kRow<kD>), one
+// LayerNorm of kRows rows of `src` into `dst` (both smem, stride kRow<kD>), one
 // warp per row, statistics E[x^2] - mu^2 as in the JAX package. Each row's
 // mean and 1/sqrt(var + eps) go to mu[r], rs[r] when those are given.
-template <int kD>
+template <int kD, int kRows = kTile>
 __device__ __forceinline__ void layer_norm_rows(const float* src, float* dst,
                                                 const float* __restrict__ g,
                                                 const float* __restrict__ b, float eps,
                                                 float* mu_out = nullptr,
                                                 float* rs_out = nullptr) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < kTile; r += kThreads / 32) {
+  for (int r = warp; r < kRows; r += kThreads / 32) {
     float v[kD / 32];
     float s = 0.f, ss = 0.f;
 #pragma unroll
@@ -76,7 +83,10 @@ __device__ __forceinline__ void layer_norm_rows(const float* src, float* dst,
 }
 
 // Softmax over the M memory tokens of (row, head) with logits q * kexp[m]:
-// the exps e[m] (shifted by the row max) and their sum, floored at 1e-30.
+// the exps e[m] and their sum, floored at 1e-30. The shift is the max over
+// this head's M logits, as the reference's softmax takes it (not the Pallas
+// kernels' one max per row over all heads, under which a head whose logits lie
+// far below another's underflows to o = 0); the sum is then >= 1.
 __device__ __forceinline__ float softmax_tokens(float q, const float* __restrict__ kr,
                                                 float (&e)[kM]) {
   float mx = q * __ldg(kr);
@@ -92,12 +102,12 @@ __device__ __forceinline__ float softmax_tokens(float q, const float* __restrict
 }
 
 // q = LN1(x) wq for each (row, head) of the tile (ns: LN1 output), the
-// attention output o = softmax . v into os (kTile, kHeads), q into qs when
+// attention output o = softmax . v into os (kRows, kHeads), q into qs when
 // given.
-template <int kD>
+template <int kD, int kRows = kTile>
 __device__ __forceinline__ void attention_rows(const float* ns, const Params& p, int b,
                                                float* os, float* qs = nullptr) {
-  for (int i = threadIdx.x; i < kTile * kHeads; i += kThreads) {
+  for (int i = threadIdx.x; i < kRows * kHeads; i += kThreads) {
     const int r = i / kHeads, hh = i % kHeads;
     float q = 0.f;
 #pragma unroll 8
@@ -114,9 +124,9 @@ __device__ __forceinline__ void attention_rows(const float* ns, const Params& p,
 }
 
 // y1 = o wo + bo + xc, in place of the tile xs.
-template <int kD>
+template <int kD, int kRows = kTile>
 __device__ __forceinline__ void attention_out_rows(float* xs, const float* os, const Params& p) {
-  for (int i = threadIdx.x; i < kTile * kD; i += kThreads) {
+  for (int i = threadIdx.x; i < kRows * kD; i += kThreads) {
     const int r = i / kD, d = i % kD;
     float acc = __ldg(p.bo + d) + xs[r * kRow<kD> + d];
 #pragma unroll
@@ -127,6 +137,23 @@ __device__ __forceinline__ void attention_out_rows(float* xs, const float* os, c
 
 __device__ __forceinline__ float gelu_cdf(float h) {
   return 0.5f * (1.f + erff(h * 0.70710678118654752f));
+}
+
+// Kernels G's and G-bwd's instantiations: f(TypeTag<T>, IntTag<kD>) for fp32
+// or bf16 and kD in {64, 128, 256, 384, 512}; any other width is refused.
+template <typename F>
+cudaError_t dispatch_attn(int D, int is_bf16, F&& f) {
+  auto widths = [&](auto t) -> cudaError_t {
+    switch (D) {
+      case 64: return f(t, IntTag<64>{});
+      case 128: return f(t, IntTag<128>{});
+      case 256: return f(t, IntTag<256>{});
+      case 384: return f(t, IntTag<384>{});
+      case 512: return f(t, IntTag<512>{});
+      default: return cudaErrorInvalidValue;
+    }
+  };
+  return is_bf16 ? widths(TypeTag<__nv_bfloat16>{}) : widths(TypeTag<float>{});
 }
 
 }  // namespace xlayer

@@ -13,7 +13,9 @@ per kernel, the launches made by the op wrappers (ops/warp.py,
 ops/xattn.py, ops/scan.py): a run can read it to show it went through the
 kernels. The selective scan's sweeps over the flat (B, L, G * Cg) layout
 (kernel H) count as `selective_scan_{fwd,ckpt,bwd}_flat`, the general
-scan's state recurrence (kernel J) as `scan_states`.
+scan's state recurrence (kernel J) as `scan_states`, the decoder layer's
+kernels F and F-bwd as `xattn_layer_{fwd,bwd}` and its attention sublayer's
+G and G-bwd as `cross_attn_{fwd,bwd}`.
 """
 
 from __future__ import annotations
@@ -48,6 +50,8 @@ _SIGNATURES = {
     "grid_sample_bwd": [_P] * 5 + [_I] * 9 + [_P],
     "xattn_layer_fwd": [_P] * 16 + [_I] * 7 + [ctypes.c_float, _P],
     "xattn_layer_bwd": [_P] * 20 + [_I] * 9 + [ctypes.c_float, _P],
+    "cross_attn_fwd": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P],
+    "cross_attn_bwd": [_P] * 14 + [_I] * 8 + [ctypes.c_float, _P],
     "selective_scan_fwd": [_P] * 9 + [_I] * 7 + [_P],
     "selective_scan_ckpt": [_P] * 7 + [_I] * 7 + [_P],
     "selective_scan_carry": [_P] * 8 + [_I] * 7 + [_P],

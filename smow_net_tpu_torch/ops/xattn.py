@@ -10,7 +10,11 @@ applied as an index gather, never as a matmul.
 `cross_layer_head1` is a torch.autograd.Function on a CUDA tensor, forward
 kernel F (csrc/xattn_layer.cu) and backward kernel F-bwd
 (csrc/xattn_layer_bwd.cu), and `cross_layer_head1_plain` under torch autograd
-on a CPU tensor.
+on a CPU tensor. `cross_attn_head1`, the layer's attention sublayer alone, is
+routed the same way: kernels G (csrc/cross_attn.cu) and G-bwd
+(csrc/cross_attn_bwd.cu) on CUDA, `cross_attn_head1_plain` on the CPU. Both
+kernels and both plain versions take one softmax shift per (pixel, head), as
+the reference's softmax does, not the Pallas kernels' one per pixel.
 """
 
 from __future__ import annotations
@@ -21,8 +25,8 @@ import torch
 
 from . import _kernels
 
-__all__ = ["cross_attn_head1", "cross_layer_head1", "cross_layer_head1_plain",
-           "layer_norm32"]
+__all__ = ["cross_attn_head1", "cross_attn_head1_plain", "cross_layer_head1",
+           "cross_layer_head1_plain", "layer_norm32"]
 
 
 def _perm_index(perm: torch.Tensor) -> torch.Tensor:
@@ -40,9 +44,10 @@ def layer_norm32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (x32 - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
 
 
-def cross_attn_head1(x, ln_scale, ln_bias, wq, k, v, w_out, b_out, *,
-                     scale, perm=None, eps=1e-5):
-    """y = to_out(softmax_m(LN(x P) wq (x) k scale) . v) + x P."""
+def cross_attn_head1_plain(x, ln_scale, ln_bias, wq, k, v, w_out, b_out, *,
+                           scale, perm=None, eps=1e-5):
+    """Plain version of kernel G: y = to_out(softmax_m(LN(x P) wq (x) k
+    scale) . v) + x P."""
     dt = x.dtype
     x_c = x if perm is None else x[..., _perm_index(perm)]
     xn = layer_norm32(x_c, ln_scale, ln_bias, eps).to(dt)
@@ -59,8 +64,8 @@ def cross_layer_head1_plain(x, ln1_scale, ln1_bias, wq, k, v, w_out, b_out,
                             scale, perm=None, eps=1e-5):
     """Plain version of kernel F: dim_head=1 cross-attention (+ residual),
     then the PreNorm exact-GELU MLP (+ residual)."""
-    y1 = cross_attn_head1(x, ln1_scale, ln1_bias, wq, k, v, w_out, b_out,
-                          scale=scale, perm=perm, eps=eps)
+    y1 = cross_attn_head1_plain(x, ln1_scale, ln1_bias, wq, k, v, w_out, b_out,
+                                scale=scale, perm=perm, eps=eps)
     dt = y1.dtype
     yn = layer_norm32(y1, ln2_scale, ln2_bias, eps).to(dt)
     h = yn @ w1.to(dt) + b1.to(dt)
@@ -70,6 +75,10 @@ def cross_layer_head1_plain(x, ln1_scale, ln1_bias, wq, k, v, w_out, b_out,
 
 # (D, heads, M, hidden) built into kernels F and F-bwd: SMOW_Net's and SMOW_Net_LW's decoders
 _LAYER_SHAPES = ((128, 8, 8, 256), (64, 8, 8, 128))
+# (D, heads, M) built into kernels G and G-bwd: the decoders' widths and the
+# Pallas kernel's (D % 128 == 0, D <= 512) at SMOW_Net's 8 heads of 8 tokens
+_ATTN_SHAPES = tuple((D, 8, 8) for D in (64, 128, 256, 384, 512))
+# the layer's 14 inputs; the attention sublayer takes the first 8
 _ARG_NAMES = ("x", "ln1_scale", "ln1_bias", "wq", "k", "v", "w_out", "b_out",
               "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
 
@@ -82,88 +91,119 @@ def _slab_layout(D, h, hidden):
             ("ln2_bias", (D,)), ("b_out", (D,)), ("b2", (D,)), ("b1", (hidden,)))
 
 
+def _part_layout(D, h):
+    """Kernel G-bwd's per-block partial sums: (argument, shape) in the order
+    of the kOff* offsets of `Part<D>` in csrc/cross_attn_bwd.cu."""
+    return (("wq", (D, h)), ("w_out", (h, D)), ("ln1_scale", (D,)), ("ln1_bias", (D,)),
+            ("b_out", (D,)))
+
+
 def _kernel_args(args, scale, perm):
-    """Check the layer's CUDA arguments against what kernels F and F-bwd
-    take; returns the fp32 weights by name, kexp/vexp (B, h, M) with the
-    softmax scale folded into kexp, and the permutation as source lanes."""
+    """Check the CUDA arguments of the layer (its 14 inputs: kernels F and
+    F-bwd) or of its attention sublayer (the first 8: kernels G and G-bwd)
+    against what the kernels take; returns the fp32 weights by name,
+    kexp/vexp (B, h, M) with the softmax scale folded into kexp, and the
+    permutation as source lanes."""
+    layer = len(args) == len(_ARG_NAMES)
+    op, kernel = ("cross_layer_head1", "F") if layer else ("cross_attn_head1", "G")
     x, k, v = args[0], args[4], args[5]
     if not x.is_cuda:
-        raise ValueError(f"cross_layer_head1: unsupported device {x.device}")
+        raise ValueError(f"{op}: unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"cross_layer_head1: dtype {x.dtype} not supported")
+        raise ValueError(f"{op}: dtype {x.dtype} not supported")
     if x.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
-        raise ValueError("cross_layer_head1: x must be (B, N, D), k and v (B, M, h)")
+        raise ValueError(f"{op}: x must be (B, N, D), k and v (B, M, h)")
     B, N, D = x.shape
     M, h = k.shape[1], k.shape[2]
-    hidden = args[10].shape[1]
-    if (D, h, M, hidden) not in _LAYER_SHAPES or k.shape[0] != B:
-        raise ValueError(f"cross_layer_head1: kernel F is built for (D, heads, M, hidden)"
-                         f" in {_LAYER_SHAPES}, got {(D, h, M, hidden)}")
+    if layer:
+        hidden = args[10].shape[1]
+        key, built, fields = (D, h, M, hidden), _LAYER_SHAPES, "(D, heads, M, hidden)"
+    else:
+        hidden = None
+        key, built, fields = (D, h, M), _ATTN_SHAPES, "(D, heads, M)"
+    if key not in built or k.shape[0] != B:
+        raise ValueError(f"{op}: kernel {kernel} is built for {fields} in {built}, got {key}")
     if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("cross_layer_head1: x must be contiguous and 16-byte aligned")
+        raise ValueError(f"{op}: x must be contiguous and 16-byte aligned")
     expect = {"ln1_scale": (D,), "ln1_bias": (D,), "wq": (D, h), "w_out": (h, D),
               "b_out": (D,), "ln2_scale": (D,), "ln2_bias": (D,), "w1": (D, hidden),
               "b1": (hidden,), "w2": (hidden, D), "b2": (D,)}
+    weights = args[1:4] + args[6:]
     w = {}
-    for (name, shape), t in zip(expect.items(), args[1:4] + args[6:]):
+    for (name, shape), t in zip(list(expect.items())[:len(weights)], weights):
         if tuple(t.shape) != shape or t.device != x.device:
-            raise ValueError(f"cross_layer_head1: {name} must be {shape} on {x.device}")
+            raise ValueError(f"{op}: {name} must be {shape} on {x.device}")
         w[name] = t.detach().float().contiguous()
     if k.device != x.device or v.device != x.device:
-        raise ValueError(f"cross_layer_head1: k and v must be on {x.device}")
+        raise ValueError(f"{op}: k and v must be on {x.device}")
     kexp = (k.detach().float() * scale).transpose(1, 2).contiguous()   # (B, h, M)
     vexp = v.detach().float().transpose(1, 2).contiguous()
     src = None
     if perm is not None:
         if tuple(perm.shape) != (D, D) or perm.device != x.device:
-            raise ValueError(f"cross_layer_head1: perm must be ({D}, {D}) on {x.device}")
+            raise ValueError(f"{op}: perm must be ({D}, {D}) on {x.device}")
         src = _perm_index(perm).to(torch.int32).contiguous()
     return w, kexp, vexp, src
 
 
 def _weight_ptrs(w, kexp, vexp):
-    return [w["ln1_scale"].data_ptr(), w["ln1_bias"].data_ptr(), w["wq"].data_ptr(),
-            kexp.data_ptr(), vexp.data_ptr(), w["w_out"].data_ptr(), w["b_out"].data_ptr(),
-            w["ln2_scale"].data_ptr(), w["ln2_bias"].data_ptr(), w["w1"].data_ptr(),
-            w["b1"].data_ptr(), w["w2"].data_ptr(), w["b2"].data_ptr()]
+    """The C entries' weight arguments; the MLP's only for the layer."""
+    return ([w["ln1_scale"].data_ptr(), w["ln1_bias"].data_ptr(), w["wq"].data_ptr(),
+             kexp.data_ptr(), vexp.data_ptr(), w["w_out"].data_ptr(), w["b_out"].data_ptr()]
+            + [w[n].data_ptr() for n in ("ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
+               if n in w])
 
 
-def _layer_fwd(args, scale, perm, eps):
-    """Kernel F: the layer's output (B, N, D) in x.dtype."""
+def _kernel_fwd(args, scale, perm, eps):
+    """Kernel F (the layer's 14 inputs) or G (the sublayer's 8): the output
+    (B, N, D) in x.dtype."""
     x = args[0]
     w, kexp, vexp, src = _kernel_args(args, scale, perm)
     B, N, D = x.shape
-    h, M, hidden = w["wq"].shape[1], kexp.shape[2], w["w1"].shape[1]
+    h, M = w["wq"].shape[1], kexp.shape[2]
+    hidden = [w["w1"].shape[1]] if "w1" in w else []
     out = torch.empty_like(x)
-    _kernels.call("xattn_layer_fwd", x.data_ptr(), None if src is None else src.data_ptr(),
-                  *_weight_ptrs(w, kexp, vexp), out.data_ptr(),
-                  B, N, D, h, M, hidden, int(x.dtype == torch.bfloat16), float(eps),
-                  _kernels.stream_handle(x.device))
+    _kernels.call("xattn_layer_fwd" if hidden else "cross_attn_fwd", x.data_ptr(),
+                  None if src is None else src.data_ptr(), *_weight_ptrs(w, kexp, vexp),
+                  out.data_ptr(), B, N, D, h, M, *hidden, int(x.dtype == torch.bfloat16),
+                  float(eps), _kernels.stream_handle(x.device))
     return out
 
 
-def _layer_bwd(args, gy, scale, perm, eps):
-    """Kernel F-bwd: the gradients of the layer's 14 inputs (`_ARG_NAMES`)
-    for the output cotangent gy, each in its input's dtype. The kernel
-    leaves one block's row sums per slab row; they are summed here."""
+def _kernel_bwd(args, gy, scale, perm, eps):
+    """Kernel F-bwd (the layer's 14 inputs) or G-bwd (the sublayer's 8): the
+    gradients of the inputs (`_ARG_NAMES`) for the output cotangent gy,
+    each in its input's dtype. The kernel leaves one block's row sums per
+    slab row; they are summed here."""
     x = args[0]
     w, kexp, vexp, src = _kernel_args(args, scale, perm)
     gy = gy.to(x.dtype).contiguous()
     B, N, D = x.shape
-    h, M, hidden = w["wq"].shape[1], kexp.shape[2], w["w1"].shape[1]
-    layout = _slab_layout(D, h, hidden)
+    h, M = w["wq"].shape[1], kexp.shape[2]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    if "w1" in w:
+        hidden = [w["w1"].shape[1]]
+        layout = _slab_layout(D, h, hidden[0])
+        # F-bwd adds into its slab row per tile: zeroed; one block per SM over
+        # the kernel's 64-row tiles (kTile, csrc/xattn_layer.cuh)
+        blocks, alloc = min(B * -(-N // 64), sms), torch.zeros
+    else:
+        hidden = []
+        layout = _part_layout(D, h)
+        # G-bwd writes its row once; two blocks per SM over kAttnRows<D> rows
+        rows = 32 if D >= 256 else 64
+        blocks, alloc = min(B * -(-N // rows), 2 * sms), torch.empty
     sizes = [math.prod(shape) for _, shape in layout]
-    tiles = B * -(-N // 64)     # the kernel's 64-row tiles (kTile, csrc/xattn_layer.cuh)
-    blocks = min(tiles, torch.cuda.get_device_properties(x.device).multi_processor_count)
-    slab = torch.zeros(blocks, sum(sizes), dtype=torch.float32, device=x.device)
+    slab = alloc(blocks, sum(sizes), dtype=torch.float32, device=x.device)
     dkexp = torch.zeros(B, h, M, dtype=torch.float32, device=x.device)
     dvexp = torch.zeros_like(dkexp)
     dx = torch.empty_like(x)
-    _kernels.call("xattn_layer_bwd", x.data_ptr(), gy.data_ptr(),
-                  None if src is None else src.data_ptr(), *_weight_ptrs(w, kexp, vexp),
-                  dx.data_ptr(), slab.data_ptr(), dkexp.data_ptr(), dvexp.data_ptr(),
-                  B, N, D, h, M, hidden, blocks, sum(sizes),
-                  int(x.dtype == torch.bfloat16), float(eps), _kernels.stream_handle(x.device))
+    _kernels.call("xattn_layer_bwd" if hidden else "cross_attn_bwd", x.data_ptr(),
+                  gy.data_ptr(), None if src is None else src.data_ptr(),
+                  *_weight_ptrs(w, kexp, vexp), dx.data_ptr(), slab.data_ptr(),
+                  dkexp.data_ptr(), dvexp.data_ptr(), B, N, D, h, M, *hidden, blocks,
+                  sum(sizes), int(x.dtype == torch.bfloat16), float(eps),
+                  _kernels.stream_handle(x.device))
     grads = {name: part.reshape(shape) for (name, shape), part in
              zip(layout, slab.sum(dim=0).split(sizes))}
     grads["x"] = dx
@@ -172,20 +212,31 @@ def _layer_bwd(args, gy, scale, perm, eps):
     return tuple(grads[name].to(a.dtype) for name, a in zip(_ARG_NAMES, args))
 
 
-class _CrossLayerHead1(torch.autograd.Function):
-    """Kernel F forward, kernel F-bwd backward; only the inputs are saved.
-    perm gets no gradient."""
+class _Head1Kernels(torch.autograd.Function):
+    """Kernels F and F-bwd for the layer's 14 inputs, G and G-bwd for the
+    attention sublayer's 8; only the inputs are saved. perm gets no
+    gradient."""
 
     @staticmethod
     def forward(ctx, perm, scale, eps, *args):
         ctx.scale, ctx.eps, ctx.perm = scale, eps, perm
         ctx.save_for_backward(*args)
-        return _layer_fwd(args, scale, perm, eps)
+        return _kernel_fwd(args, scale, perm, eps)
 
     @staticmethod
     def backward(ctx, gy):
-        grads = _layer_bwd(ctx.saved_tensors, gy, ctx.scale, ctx.perm, ctx.eps)
+        grads = _kernel_bwd(ctx.saved_tensors, gy, ctx.scale, ctx.perm, ctx.eps)
         return (None, None, None) + grads
+
+
+def cross_attn_head1(x, ln_scale, ln_bias, wq, k, v, w_out, b_out, *,
+                     scale, perm=None, eps=1e-5):
+    """The attention sublayer: kernel G (and G-bwd for its gradients) on a
+    CUDA tensor, the plain version under torch autograd on a CPU tensor."""
+    args = (x, ln_scale, ln_bias, wq, k, v, w_out, b_out)
+    if x.device.type == "cpu":
+        return cross_attn_head1_plain(*args, scale=scale, perm=perm, eps=eps)
+    return _Head1Kernels.apply(perm, scale, eps, *args)
 
 
 def cross_layer_head1(x, ln1_scale, ln1_bias, wq, k, v, w_out, b_out,
@@ -197,4 +248,4 @@ def cross_layer_head1(x, ln1_scale, ln1_bias, wq, k, v, w_out, b_out,
             ln2_scale, ln2_bias, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return cross_layer_head1_plain(*args, scale=scale, perm=perm, eps=eps)
-    return _CrossLayerHead1.apply(perm, scale, eps, *args)
+    return _Head1Kernels.apply(perm, scale, eps, *args)

@@ -2,7 +2,8 @@
 in every padding mode and align_corners flag, F and F-bwd, the layer at
 D = 128 and 64; the selective scan's I-fwd, I-ckpt and I-bwd, over the
 grouped layout (I) and the flat one (H), seeded, at any number of rows;
-H-seg's carry and adjoint carry; the general scan's J) against their plain
+H-seg's carry and adjoint carry; the general scan's J; G and G-bwd, the
+layer's attention sublayer, at D = 128 and 512) against their plain
 versions, on the card. Marked
 `cuda`; each test skips when no CUDA device is present (there is no
 interpret mode for a CUDA kernel). On a GPU machine without JAX,
@@ -696,3 +697,74 @@ def test_scan_kernels_take_more_rows_than_the_grid_y_extent(dev, flat):
     _close(y, want_y, 1e-6, 1e-5)
     for g, w in zip(got, want):
         _close(g, w, 1e-6, 1e-4)
+
+
+def _attn_inputs(dev, rng, D, h=8, M=8, B=2, N=1000):
+    """Kernel G's 8 inputs (the decoder layer's first 8) and a cotangent;
+    N = 1000 leaves a ragged tail of G's 64- and 32-row tiles."""
+    def f(*s, scale=1.0, off=0.0):
+        return torch.from_numpy((rng.normal(size=s) * scale + off).astype(np.float32)).to(dev)
+
+    return [f(B, N, D), f(D, scale=0.2, off=1.0), f(D, scale=0.1), f(D, h, scale=0.1),
+            f(B, M, h), f(B, M, h), f(h, D, scale=0.1), f(D, scale=0.1)], f(B, N, D)
+
+
+@pytest.mark.parametrize("D", [128, 512])
+@pytest.mark.parametrize("use_perm", [False, True], ids=["no_perm", "perm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_cross_attn_kernel_matches_plain(dev, D, use_perm, dtype):
+    """Kernel G (the layer's attention sublayer) against the plain version in
+    fp32 on the same inputs, one launch per call."""
+    rng = np.random.default_rng(D + 11)
+    args, _ = _attn_inputs(dev, rng, D)
+    args = [a.to(dtype) for a in args]
+    perm = _random_perm(dev, rng, D) if use_perm else None
+    before = _kernels.launches["cross_attn_fwd"]
+    out = xattn.cross_attn_head1(*args, scale=D ** -0.5, perm=perm)
+    torch.cuda.synchronize()
+    assert _kernels.launches["cross_attn_fwd"] == before + 1 and out.dtype == dtype
+    want = xattn.cross_attn_head1_plain(*[a.float() for a in args], scale=D ** -0.5,
+                                        perm=perm)
+    _close(out, want, 1e-4 if dtype == torch.bfloat16 else 0.0,
+           1e-5 if dtype == torch.float32 else BF16_REL)
+
+
+@pytest.mark.parametrize("D", [128, 512])
+@pytest.mark.parametrize("use_perm", [False, True], ids=["no_perm", "perm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_cross_attn_bwd_kernel_matches_plain(dev, D, use_perm, dtype):
+    """Kernel G-bwd: the 8 input gradients against torch.autograd.grad of
+    the plain version in fp32 on the same inputs (fp32: 1e-4 of each
+    gradient's largest element, the row sums run in another order; bf16:
+    one rounding), one launch of G and of G-bwd."""
+    rng = np.random.default_rng(D + 12)
+    args, gy = _attn_inputs(dev, rng, D)
+    args = [a.to(dtype).requires_grad_() for a in args]
+    perm = _random_perm(dev, rng, D) if use_perm else None
+    before = {n: _kernels.launches[n] for n in ("cross_attn_fwd", "cross_attn_bwd")}
+    out = xattn.cross_attn_head1(*args, scale=D ** -0.5, perm=perm)
+    got = torch.autograd.grad(out, args, gy.to(dtype))
+    torch.cuda.synchronize()
+    assert all(_kernels.launches[n] == before[n] + 1 for n in before)
+    ref = [a.detach().float().requires_grad_() for a in args]
+    want = torch.autograd.grad(
+        xattn.cross_attn_head1_plain(*ref, scale=D ** -0.5, perm=perm), ref,
+        gy.to(dtype).float())
+    for g, w, a in zip(got, want, args):
+        assert g.dtype == a.dtype and g.shape == a.shape
+        _close(g, w, 1e-5 if dtype == torch.bfloat16 else 0.0,
+               1e-4 if dtype == torch.float32 else BF16_REL)
+
+
+def test_cross_attn_raises_on_what_the_kernels_do_not_take(dev):
+    """h = 16 (which JAX's G takes), M = 16, D = 96 and fp16 raise rather
+    than fall back to the plain version."""
+    before = _kernels.launches["cross_attn_fwd"]
+    for kwargs in (dict(D=128, h=16), dict(D=128, M=16), dict(D=96)):
+        args, _ = _attn_inputs(dev, np.random.default_rng(0), N=64, **kwargs)
+        with pytest.raises(ValueError):
+            xattn.cross_attn_head1(*args, scale=0.1)
+    args, _ = _attn_inputs(dev, np.random.default_rng(0), 128, N=64)
+    with pytest.raises(ValueError):
+        xattn.cross_attn_head1(*[a.half() for a in args], scale=0.1)
+    assert _kernels.launches["cross_attn_fwd"] == before
