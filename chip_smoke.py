@@ -11,11 +11,15 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      (32, 128, 128, 8), a logit spread > 87 (zaw underflow), C = 16
   3b. the token chain's train kernels vs their plain versions, same cases:
      E (D plus the eaw residual), C (`grid_sample_t_vjp`), A-bwd
-     (`grid_sample_bwd`); then the whole `token_softmax_scatter` VJP
-     (da, dflow), kernel path vs plain path, in fp32
+     (`grid_sample_bwd`); A-bwd also on a smooth flow (a numpy-seeded 8x8
+     field upsampled to 128x128), timed beside the i.i.d. flow with the
+     kernel alone and the library call; then the whole
+     `token_softmax_scatter` VJP (da, dflow), kernel path vs plain path, in
+     fp32
   3c. kernels A-fwd (`grid_sample`) and B (`grid_sample_transpose`) vs their
      plain versions, fp32 and bf16, at (32, 128, 128, 8) (SMOW_Net_LW's
-     token chain), with border-clamped flows, and C = 16
+     token chain), with border-clamped flows, and C = 16; B also on the
+     smooth flow of 3b, timed as there
   3d. the unfused token chain's VJP (da, dflow), kernel path vs plain path,
      fp32; then the hybrid, the unfused and the fused chain timed, forward
      plus backward, bf16 at (32, 128, 128, 8), in turns
@@ -500,6 +504,50 @@ def _token_inputs(dev, shape, seed, spike=False):
     return torch.from_numpy(a).to(dev), flow, warp.flow_grid(flow, H, W), r, s
 
 
+def _smooth_grid(dev, shape, seed):
+    """The flow grid of a smooth flow: a numpy-seeded (F, 8, 8) field of two
+    channels with std 3 (the units of `_token_inputs`' i.i.d. flow),
+    bilinearly upsampled to (H, W)."""
+    from smow_net_tpu_torch.ops import warp
+
+    F_, H, W, _ = shape
+    field = (np.random.default_rng(seed).normal(size=(F_, 2, 8, 8)) * 3.0).astype(np.float32)
+    flow = torch.nn.functional.interpolate(torch.from_numpy(field).to(dev), size=(H, W),
+                                           mode="bilinear", align_corners=True)
+    return warp.flow_grid(flow.permute(0, 2, 3, 1).contiguous(), H, W)
+
+
+def smooth_flow_case(dev, name: str, x: torch.Tensor, g: torch.Tensor) -> None:
+    """Kernel A-bwd (`grid_sample_bwd` of image x and cotangent g) or B
+    (`grid_sample_transpose` of g into x's shape) on the smooth flow at x's
+    shape, bf16: held against its plain version, then its time from a CUDA
+    graph, alone (profiler) and the library call's on the same inputs.
+    Logged only: the JSON line keeps the i.i.d. flow's numbers."""
+    from smow_net_tpu_torch.ops import warp
+
+    H, W = x.shape[1:3]
+    grid = _smooth_grid(dev, x.shape, 37)
+    if name == "grid_sample_bwd":
+        label, mask = "A-bwd", [True, True]
+        call = lambda: warp.grid_sample_bwd(x, g, grid)
+        (dx, dw), (dx_p, dw_p) = call(), warp.grid_sample_bwd_plain(x.float(), g.float(), grid)
+        check("A-bwd smooth flow bf16 dx", dx, dx_p, 1e-5, BF16_REL)
+        check("A-bwd smooth flow bf16 dw", dw, dw_p, 1e-5, 1e-5)
+    else:
+        label, mask = "B", [True, False]
+        call = lambda: warp.grid_sample_transpose(g, grid, (H, W))
+        check("B smooth flow bf16", call(),
+              warp.grid_sample_transpose_plain(g.float(), grid, (H, W)), 1e-5, BF16_REL)
+    x_nchw = x.permute(0, 3, 1, 2).contiguous()
+    g_nchw = g.permute(0, 3, 1, 2).contiguous()
+    grid_dt = grid.to(x.dtype)
+    library = graph_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        g_nchw, x_nchw, grid_dt, 0, 1, True, mask))
+    log(f"  {label} smooth flow bf16 time: kernel {graph_ms(call):.4f} ms (CUDA graph), "
+        f"alone {kernel_only_ms(call, name):.4f} ms (profiler), library {library:.4f} ms "
+        "(NCHW, CUDA graph)")
+
+
 def phase_token_backward(dev) -> dict:
     """Kernels E, C and A-bwd against their plain versions, then the whole
     token-chain VJP on the kernel path against the plain path."""
@@ -555,13 +603,16 @@ def phase_token_backward(dev) -> dict:
                 x_nchw = x.permute(0, 3, 1, 2).contiguous()
                 g_nchw = daw.permute(0, 3, 1, 2).contiguous()
                 grid_dt = grid.to(dt)
-                ab.update(max_abs_err=err_a,
-                          ms=graph_ms(lambda: warp.grid_sample_bwd(x, daw, grid)),
+                ab_call = lambda: warp.grid_sample_bwd(x, daw, grid)
+                ab.update(max_abs_err=err_a, ms=graph_ms(ab_call),
                           plain_ms=graph_ms(lambda: warp.grid_sample_bwd_plain(x, daw, grid)),
                           library_ms=graph_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
                               g_nchw, x_nchw, grid_dt, 0, 1, True, [True, True])),
                           **bound(nbytes(x, daw, grid, da, dw_a), 26 * x.numel()))
                 log_times(results, label)
+                log(f"  A-bwd alone {kernel_only_ms(ab_call, 'grid_sample_bwd'):.4f} ms "
+                    "(profiler)")
+                smooth_flow_case(dev, "grid_sample_bwd", x, daw)
 
     case("slice", (32, 128, 128, 8))
     case("spread>87", (32, 128, 128, 8), spike=True)
@@ -633,6 +684,7 @@ def phase_warps(dev) -> dict:
                 log(f"  kernels alone (profiler): A-fwd "
                     f"{kernel_only_ms(a_call, 'grid_sample_fwd'):.4f} ms, B "
                     f"{kernel_only_ms(b_call, 'grid_sample_transpose'):.4f} ms")
+                smooth_flow_case(dev, "grid_sample_transpose", x, g)
 
     case("LW chain", (32, 128, 128, 8))
     case("border-clamped", (32, 128, 128, 8), spike=True)

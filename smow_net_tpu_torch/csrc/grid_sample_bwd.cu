@@ -12,58 +12,73 @@
 //   dwy_k[p] = sum_j wx_j s_kj,   dwx_j[p] = sum_k wy_k s_kj
 // The wrapper carries (dwy0, dwy1, dwx0, dwx1) to dgrid in plain torch.
 //
-// What bounds it on the card: memory and atomics. Per pixel it reads one gy
-// row, four C-channel image rows (L2 hits, mostly) and the grid point,
-// writes four fp32 weight gradients and issues 4C fp32 atomic adds into the
-// dx accumulator (16 MB at the SMOW_Net shape, resident in L2).
+// What bounds it on the card: bytes, once the atomics are few. One thread
+// per grid pixel issuing 4C scalar fp32 atomics into the dx accumulator,
+// each warp instruction spread over 32 rows of 32 bytes with 4 useful bytes
+// in each, made the L2's atomic unit the limit (0.22 ms at (32, 128, 128,
+// 8), 5% of the byte bound). The bytes are x, gy and the grid read once, dx's
+// fp32 sum and the four fp32 weight-gradient rows.
 //
 // Design: the TPU kernel ran three one-hot MXU matmuls per pixel tile
-// around one expanded operand. Here one thread owns one grid pixel, as in
-// kernel D: it gathers the four corner rows with 16-byte loads, forms the
-// dot products, writes its weight gradients and scatters w * gy into an
-// fp32 accumulator with atomicAdd (the wrapper casts it once). A
-// border-clamped flow sends many pixels to one corner, so those atomics
-// contend, and their order, hence the last bits of dx, varies by run.
+// around one expanded operand. Here a block takes a tile of grid pixels.
+// One thread per pixel gathers the four corner rows of x with 16-byte loads,
+// forms the dot products with gy and writes the four weight gradients
+// coalesced by pixel, as kernel D does; it notes the pixel's corners and
+// stages its gy row in shared memory. The block then sorts the corners by
+// the cells of the tile's bounding box, sums each cell's w * gy rows in
+// registers and adds each sum to dx with 16-byte vector reductions, or,
+// when the box is too large, adds the corner rows straight to dx as vector
+// reductions (tile_scatter.cuh, shared with kernel B). A border-clamped
+// flow sends many pixels to one cell, whose thread then sums them all; the
+// sums' order, hence the last bits of dx, varies by run.
 
-#include "common.cuh"
+#include "tile_scatter.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
 template <typename T, int C, bool kZeros, bool kAlign>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(smow::kScatterThreads)
 grid_sample_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy,
                        const float* __restrict__ grid, float* __restrict__ dx,
-                       float* __restrict__ dw, int H, int W, int P) {
+                       float* __restrict__ dw, int H, int W, int Hg, int Wg) {
+  __shared__ smow::ScatterSmem<C> sm;
   const int b = blockIdx.y;
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= P) return;
-  const float2 gp = __ldg(reinterpret_cast<const float2*>(grid) + (size_t)b * P + p);
-  const smow::Corners cr = smow::bilinear_corners<kZeros, kAlign>(gp, H, W);
-  float gv[C];
-  smow::load_f32<T, C>(gy + ((size_t)b * P + p) * C, gv);
+  const int P = Hg * Wg;
+  const smow::TileGeom<C> tg(blockIdx.x, Hg, Wg);
+  const float2* gridb = reinterpret_cast<const float2*>(grid) + (size_t)b * P;
   const T* xb = x + (size_t)b * H * W * C;
-  float* dxb = dx + (size_t)b * H * W * C;
-  float s[4];
+  const T* gyb = gy + (size_t)b * P * C;
+  smow::Box box;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    float v[C];
-    smow::load_f32<T, C>(xb + (size_t)cr.idx[k] * C, v);
-    const float w = cr.wy[k / 2] * cr.wx[k % 2];
-    float dot = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      dot += v[c] * gv[c];
-      atomicAdd(dxb + (size_t)cr.idx[k] * C + c, w * gv[c]);
+  for (int i = 0; i < smow::ScatterSmem<C>::kSlots; ++i) {
+    const int slot = i * smow::kScatterThreads + threadIdx.x;
+    const int p = tg.pixel(slot, Wg);
+    if (p < 0) {
+      smow::note_empty(sm, slot);
+      continue;
     }
-    s[k] = dot;
+    const smow::Corners cr = smow::bilinear_corners<kZeros, kAlign>(__ldg(gridb + p), H, W);
+    float gv[C];
+    smow::load_f32<T, C>(gyb + (size_t)p * C, gv);
+    float s[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float v[C];
+      smow::load_f32<T, C>(xb + (size_t)cr.idx[k] * C, v);
+      float dot = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) dot += v[c] * gv[c];
+      s[k] = dot;
+    }
+    float* dwb = dw + (size_t)b * 4 * P + p;
+    dwb[0] = cr.wx[0] * s[0] + cr.wx[1] * s[1];   // dwy0
+    dwb[P] = cr.wx[0] * s[2] + cr.wx[1] * s[3];   // dwy1
+    dwb[2 * P] = cr.wy[0] * s[0] + cr.wy[1] * s[2];  // dwx0
+    dwb[3 * P] = cr.wy[0] * s[1] + cr.wy[1] * s[3];  // dwx1
+    smow::stage_row(sm, slot, gv);
+    smow::note_corners(sm, slot, cr, W, box);
   }
-  float* dwb = dw + (size_t)b * 4 * P + p;
-  dwb[0] = cr.wx[0] * s[0] + cr.wx[1] * s[1];   // dwy0
-  dwb[P] = cr.wx[0] * s[2] + cr.wx[1] * s[3];   // dwy1
-  dwb[2 * P] = cr.wy[0] * s[0] + cr.wy[1] * s[2];  // dwx0
-  dwb[3 * P] = cr.wy[0] * s[1] + cr.wy[1] * s[3];  // dwx1
+  smow::scatter_tile(sm, box, dx + (size_t)b * H * W * C, W);
 }
 
 }  // namespace
@@ -76,17 +91,19 @@ grid_sample_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy,
 extern "C" int grid_sample_bwd(const void* x, const void* gy, const void* grid, void* dx,
                                void* dw, int B, int H, int W, int Hg, int Wg, int C,
                                int is_bf16, int zeros, int align, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || Hg <= 0 || Wg <= 0) return cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || W <= 0 || Hg <= 0 || Wg <= 0 || H > smow::kCoordBits ||
+      W > smow::kCoordBits)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int P = Hg * Wg;
-  const dim3 blocks((P + kThreads - 1) / kThreads, B);
   return static_cast<int>(smow::dispatch_warp(C, is_bf16, zeros, align,
                                               [&](auto t, auto c, auto z, auto al) {
     using T = typename decltype(t)::type;
-    grid_sample_bwd_kernel<T, decltype(c)::value, decltype(z)::value, decltype(al)::value>
-        <<<blocks, kThreads, 0, s>>>(static_cast<const T*>(x), static_cast<const T*>(gy),
-                                     static_cast<const float*>(grid), static_cast<float*>(dx),
-                                     static_cast<float*>(dw), H, W, P);
+    constexpr int kC = decltype(c)::value;
+    auto kernel = grid_sample_bwd_kernel<T, kC, decltype(z)::value, decltype(al)::value>;
+    const dim3 blocks(smow::TileGeom<kC>::count(Hg, Wg), B);
+    kernel<<<blocks, smow::kScatterThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(gy), static_cast<const float*>(grid),
+        static_cast<float*>(dx), static_cast<float*>(dw), H, W, Hg, Wg);
     return cudaGetLastError();
   }));
 }

@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels (D, E, D-bwd, C, A-fwd, A-bwd, B
-in every padding mode and align_corners flag, F and F-bwd, the layer at
-D = 128 and 64; the selective scan's I-fwd, I-ckpt and I-bwd, over the
+in every padding mode and align_corners flag, B's and A-bwd's tile scatter
+on grids that take its sorted path and its direct one, F and F-bwd, the
+layer at D = 128 and 64; the selective scan's I-fwd, I-ckpt and I-bwd, over the
 grouped layout (I) and the flat one (H), seeded, at any number of rows;
 H-seg's carry and adjoint carry; the general scan's J; G and G-bwd, the
 layer's attention sublayer, at D = 128 and 512) against their plain
@@ -363,6 +364,87 @@ def test_grid_sample_kernels_match_plain(dev, C, dtype):
             torch.cuda.synchronize()
             assert _kernels.launches[name] == before + 1 and out.dtype == dtype
             _close(out, plain(x.float(), grid, *size), 1e-5, rtol)
+
+
+def smooth_field(rng, B, H, W, std, n=8):
+    """A (B, n, n, 2) normal field of `std`, bilinearly upsampled to (B, H,
+    W, 2) with the corners aligned."""
+    field = rng.normal(size=(B, n, n, 2)) * std
+
+    def lerp_axis(f, size, axis):
+        pos = np.linspace(0.0, n - 1.0, size)
+        i0 = np.minimum(np.floor(pos).astype(int), n - 2)
+        t = (pos - i0).reshape([-1 if a == axis else 1 for a in range(4)])
+        return np.take(f, i0, axis) * (1 - t) + np.take(f, i0 + 1, axis) * t
+
+    return lerp_axis(lerp_axis(field, H, 1), W, 2)
+
+
+def scatter_grid(kind, B, Hg, Wg, seed):
+    """A (B, Hg, Wg, 2) fp32 grid for the tile scatter of kernels B and
+    A-bwd. "smooth": the identity plus a smooth flow (an 8x8 field of std 3
+    in flow units, /(W, H), as `flow_grid` scales it): each tile's corners
+    stay in a small box. "far": uniform in [-1.2, 1.2]: every tile's
+    corners cover the whole image. "clamped": the smooth grid with x = 1,
+    so a tile row's pixels all hit one column (the most corners in one
+    cell). "nan": the smooth grid with a NaN at the last pixel, whose
+    corner (0, 0) stretches its tile's box over the image."""
+    rng = np.random.default_rng(seed)
+    if kind == "far":
+        return rng.uniform(-1.2, 1.2, size=(B, Hg, Wg, 2)).astype(np.float32)
+    base = np.stack(np.meshgrid(np.linspace(-1, 1, Wg), np.linspace(-1, 1, Hg)), -1)
+    grid = base[None] + smooth_field(rng, B, Hg, Wg, 3.0) / np.array([Wg, Hg])
+    if kind == "clamped":
+        grid[..., 0] = 1.0
+    if kind == "nan":
+        grid[-1, -1, -1] = np.nan
+    return grid.astype(np.float32)
+
+
+# (mode, kind): every grid kind in each (padding_mode, align_corners) pair;
+# the NaN grid under border padding only (see the test)
+SCATTER_CASES = [(m, k) for m in MODES for k in ("smooth", "far", "clamped", "nan")
+                 if k != "nan" or m[0] == "border"]
+
+
+@pytest.mark.parametrize("mode,kind", SCATTER_CASES,
+                         ids=[f"{m[0]}_{'align' if m[1] else 'half'}_{k}"
+                              for m, k in SCATTER_CASES])
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_tile_scatter_kernels_match_plain(dev, mode, kind, C, dtype):
+    """Kernels B (`grid_sample_transpose`) and A-bwd (`grid_sample_bwd`),
+    whose blocks sort a tile of grid pixels' corners by the cells of their
+    box in shared memory or, when the box has 2048 cells or more, add them
+    straight to device memory, on B = 3 grids of 37 x 45 pixels (no
+    multiple of any tile) into a 48 x 50 image: the outputs to 1e-5 of the
+    largest element in fp32 and to one bf16 rounding in bf16, A-bwd's fp32
+    weight rows to 1e-5.
+
+    The "smooth" and "clamped" grids take the sorted path, "far" the direct
+    one (the whole image's 2400 cells), "nan" both in one launch. A NaN
+    coordinate is the image's low end to the kernels (common.cuh
+    `bilinear_corners` clamps with fmaxf, which drops the NaN), where the
+    plain version, like JAX, makes NaN weights: the plain side gets -1, the
+    coordinate the kernels' clamp gives (ROADMAP.md, faults)."""
+    B, Hg, Wg, H, W = 3, 37, 45, 48, 50
+    grid_np = scatter_grid(kind, B, Hg, Wg, 50 + C)
+    rng = np.random.default_rng(60 + C)
+    x = torch.from_numpy(rng.normal(size=(B, H, W, C)).astype(np.float32)).to(dev, dtype)
+    g = torch.from_numpy(rng.normal(size=(B, Hg, Wg, C)).astype(np.float32)).to(dev, dtype)
+    grid = torch.from_numpy(grid_np).to(dev)
+    ref_grid = torch.from_numpy(np.nan_to_num(grid_np, nan=-1.0)).to(dev)
+    rtol = 1e-5 if dtype == torch.float32 else BF16_REL
+    before = {n: _kernels.launches[n] for n in ("grid_sample_transpose", "grid_sample_bwd")}
+    out = warp.grid_sample_transpose(g, grid, (H, W), *mode)
+    dx, dw = warp.grid_sample_bwd(x, g, grid, *mode)
+    torch.cuda.synchronize()
+    assert all(_kernels.launches[n] == c + 1 for n, c in before.items())
+    assert out.dtype == dx.dtype == dtype and out.shape == dx.shape == x.shape
+    _close(out, warp.grid_sample_transpose_plain(g.float(), ref_grid, (H, W), *mode), 0.0, rtol)
+    dx_p, dw_p = warp.grid_sample_bwd_plain(x.float(), g.float(), ref_grid, *mode)
+    _close(dx, dx_p, 0.0, rtol)
+    _close(dw, dw_p, 0.0, 1e-5)
 
 
 def test_unfused_token_chain_gradient_kernel_path_matches_plain(dev):
