@@ -28,7 +28,11 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      fp32 and bf16, one launch per call; then the fused chain's whole VJP
      (da, dflow), kernel path (D, D-bwd) vs plain path, fp32
   3f. kernels A-fwd, B, C and A-bwd in the four (padding_mode,
-     align_corners) pairs at (32, 128, 128, C), C = 8 and 32, fp32
+     align_corners) pairs at (32, 128, 128, C), C = 8 and 32, fp32; each
+     also on its grid with NaN coordinates (a NaN x, y, both; interior and
+     last pixel), and D, E and D-bwd on such a flow grid at C = 8 and 16,
+     against their plain versions on the same grid: NaN at the same
+     elements, the finite ones at the phase's bounds
   3g. the reference's unfused OFW route, TokenTransformerEncoder(OFW(x))
      (A-fwd and A-bwd at C = 32), vs the fused route SMOWNet runs, on
      (16, 32, 2, 128, 128) features with numpy-seeded weights, fp32
@@ -87,8 +91,11 @@ Phases (any failure raises and exits non-zero; no result line is printed):
   14. kernel I-ckpt's chunk-start states vs a plain step-by-step loop, and
      I-ckpt + I-bwd (with the epilogue) vs torch.autograd.grad of the plain
      version: all seven input gradients at (32, 4, 1024, 384) and
-     (16, 4, 8192, 256), fp32; then I-ckpt's and I-bwd's times summed over
-     the 27 calls of one train step, bf16
+     (16, 4, 8192, 256), fp32; I-bwd's registers and spills (ptxas), its
+     resident warps per SM in both layouts and dtypes (the CUDA occupancy
+     calculator) and two runs bitwise equal; then I-ckpt's and I-bwd's
+     times summed over the 27 calls of one train step, bf16, I-bwd also
+     alone (its launches between CUDA events)
   15-18. phases 5-8 for get_model("change_mamba") (16 x 256^2, batch 16;
      numpy-seeded weights with A_logs, Ds and dt_projs_bias perturbed around
      the reference's initialisation): the eval step (I-fwd 27 times per
@@ -288,6 +295,54 @@ def kernel_only_ms(fn, kernel: str, iters: int = 20, sessions: int = 4) -> float
     raise RuntimeError(f"the profiler saw no kernel named like {kernel} in {sessions} sessions")
 
 
+def launch_ms(fn, entry: str, iters: int = 5) -> float:
+    """Device time per call of `fn` of the launches of C entry `entry` alone:
+    CUDA events recorded on the current stream just before and just after
+    each such launch (`_kernels.call`), so the casts, allocations and sums
+    that `fn` does around the kernel stay out; after one warm-up call. Not
+    the profiler (`kernel_only_ms`): in phase 19, after the plain scan's
+    long runs, its sessions have come back without any device event."""
+    from smow_net_tpu_torch.ops import _kernels
+
+    fn()
+    call, pairs = _kernels.call, []
+
+    def timed(name, *args, **kwargs):
+        if name != entry:
+            return call(name, *args, **kwargs)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        call(name, *args, **kwargs)
+        end.record()
+        pairs.append((start, end))
+
+    _kernels.call = timed
+    try:
+        for _ in range(iters):
+            fn()
+    finally:
+        _kernels.call = call
+    torch.cuda.synchronize()
+    require(pairs, f"{entry} was not launched in {iters} calls")
+    return sum(start.elapsed_time(end) for start, end in pairs) / iters
+
+
+def ptxas_lines(kernel: str) -> list:
+    """The build's ptxas lines (registers, spills, shared memory) of every
+    instantiation whose mangled name contains `kernel`, each prefixed with
+    that name."""
+    from smow_net_tpu_torch.ops import _kernels
+
+    lines, current = [], ""
+    for line in _kernels.build_report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            current = m.group(1)
+        elif kernel in current and ("registers" in line or "spill" in line):
+            lines.append(f"{current}: {line.strip()}")
+    return lines
+
+
 def check(label: str, got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float) -> float:
     """max |got - want| against atol + rtol * max |want|; raises if above."""
     got, want = got.float(), want.float()
@@ -298,6 +353,30 @@ def check(label: str, got: torch.Tensor, want: torch.Tensor, atol: float, rtol: 
     log(f"  {label}: max_abs_err {err:.3e} (bound {bound:.3e})")
     require(err <= bound, f"{label}: max_abs_err {err} exceeds {bound}")
     return err
+
+
+def check_nan(label: str, got: torch.Tensor, want: torch.Tensor, atol: float,
+              rtol: float) -> float:
+    """`check` for outputs that hold NaN: NaN at the same elements (at least
+    one), the finite ones within atol + rtol * their largest."""
+    got, want = got.float(), want.float()
+    nan = torch.isnan(want)
+    require(bool(nan.any()), f"{label}: the plain version gives no NaN")
+    require(torch.equal(torch.isnan(got), nan),
+            f"{label}: NaN at {int(torch.isnan(got).sum())} elements, the plain version at "
+            f"{int(nan.sum())}, or at others")
+    return check(f"{label} ({int(nan.sum())} NaN)", got[~nan], want[~nan], atol, rtol)
+
+
+def with_nans(grid: torch.Tensor) -> torch.Tensor:
+    """A copy of `grid` (B >= 2, Hg >= 4, Wg >= 5) with a NaN x, a NaN y and
+    both NaN at interior pixels, and both NaN at the last pixel."""
+    grid = grid.clone()
+    grid[0, 1, 2, 0] = float("nan")
+    grid[0, 2, 3, 1] = float("nan")
+    grid[1, 3, 4] = float("nan")
+    grid[-1, -1, -1] = float("nan")
+    return grid
 
 
 HBM_BYTES_PER_S = 3.35e12
@@ -811,7 +890,8 @@ def phase_warp_modes(dev) -> None:
 
     log("phase 3f: kernels A-fwd, B, C, A-bwd in the four (padding_mode, align_corners) pairs "
         "at (32, 128, 128, C), C = 8 and 32, fp32, on grids reaching beyond [-1, 1] (outputs "
-        "1e-5 of the largest element, weight rows and dgrid 1e-4)")
+        "1e-5 of the largest element, weight rows and dgrid 1e-4), then on the same grids with "
+        "NaN coordinates (NaN at the same elements, the finite ones at those bounds)")
     names = ("grid_sample_fwd", "grid_sample_transpose", "grid_sample_t_vjp", "grid_sample_bwd")
     for C in (8, 32):
         g = torch.Generator(dev).manual_seed(60 + C)
@@ -841,7 +921,51 @@ def phase_warp_modes(dev) -> None:
                 check(f"{kname} {label} dw", dw, dw_p, 0.0, 1e-4)
                 check(f"{kname} {label} dgrid", warp.corner_weights_vjp(grid, dw, *hw, *mode),
                       warp.corner_weights_vjp(grid, dw_p, *hw, *mode), 0.0, 1e-4)
-        del x, other, grid, got, want
+            # the same grid with NaN coordinates: both sides on it, NaN at
+            # the same elements (tests/test_torch_warp_nan.py's contract)
+            nan_grid = with_nans(grid)
+            got = (warp.grid_sample(x, nan_grid, *mode),
+                   warp.grid_sample_transpose(other, nan_grid, hw, *mode),
+                   warp.grid_sample_t_vjp(x, other, nan_grid, *mode),
+                   warp.grid_sample_bwd(x, other, nan_grid, *mode))
+            want = (warp.grid_sample_plain(x, nan_grid, *mode),
+                    warp.grid_sample_transpose_plain(other, nan_grid, hw, *mode),
+                    warp.grid_sample_t_vjp_plain(x, other, nan_grid, *mode),
+                    warp.grid_sample_bwd_plain(x, other, nan_grid, *mode))
+            check_nan(f"A-fwd {label} NaN grid", got[0], want[0], 0.0, 1e-5)
+            check_nan(f"B {label} NaN grid", got[1], want[1], 0.0, 1e-5)
+            for kname, (o, dw), (o_p, dw_p) in (("C", got[2], want[2]),
+                                                ("A-bwd", got[3], want[3])):
+                check_nan(f"{kname} {label} NaN grid out", o, o_p, 0.0, 1e-5)
+                check_nan(f"{kname} {label} NaN grid dw", dw, dw_p, 0.0, 1e-4)
+                check_nan(f"{kname} {label} NaN grid dgrid",
+                          warp.corner_weights_vjp(nan_grid, dw, *hw, *mode),
+                          warp.corner_weights_vjp(nan_grid, dw_p, *hw, *mode), 0.0, 1e-4)
+        del x, other, grid, nan_grid, got, want
+
+    log("  kernels D, E and D-bwd (border, align_corners) at (32, 128, 128, C), C = 8 and 16, "
+        "fp32, on a flow grid with NaN coordinates vs their plain versions on it (ew, zaw, eaw "
+        "1e-5 of the largest finite element; da, dw 1e-4)")
+    for C in (8, 16):
+        a, _, grid, r, s = _token_inputs(dev, (32, 128, 128, C), 38)
+        grid = with_nans(grid)
+        m = a.amax(dim=(1, 2)).float()
+        names = ("token_scatter_fwd", "token_scatter_fwd_eaw", "token_scatter_bwd")
+        before = {n: _kernels.launches[n] for n in names}
+        got = (warp.token_scatter(a, grid, m), warp.token_scatter(a, grid, m, residual=True),
+               warp.token_scatter_bwd(a, grid, m, r, s))
+        torch.cuda.synchronize()
+        require(all(_kernels.launches[n] == before[n] + 1 for n in names),
+                "D, E and D-bwd launched once each on the NaN grid")
+        want = (warp.token_scatter_plain(a, grid, m),
+                warp.token_scatter_plain(a, grid, m, residual=True),
+                warp.token_scatter_bwd_plain(a, grid, m, r, s))
+        for kname, outs, refs in (("D", got[0], want[0]), ("E", got[1], want[1])):
+            for part, o, o_p in zip(("ew", "zaw", "eaw"), outs, refs):
+                check_nan(f"{kname} C={C} NaN grid {part}", o, o_p, 1e-6, 1e-5)
+        check_nan(f"D-bwd C={C} NaN grid da", got[2][0], want[2][0], 1e-6, 1e-4)
+        check_nan(f"D-bwd C={C} NaN grid dw", got[2][1], want[2][1], 1e-6, 1e-4)
+        del a, grid, r, s, got, want
 
 
 def phase_ofw_route(dev) -> None:
@@ -1323,11 +1447,30 @@ def phase_scan_bwd(dev, rate: float) -> dict:
         if shape == (32, 4, 1024, 384):
             results["selective_scan_bwd"]["max_abs_err"] = err
         del got, want
+    # I-bwd's build and residency: registers and spills (ptxas), resident
+    # warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+    for line in ptxas_lines("scan_bwd_kernel"):
+        log("  ptxas " + line)
+    for flat in (False, True):
+        for bf16 in (False, True):
+            warps, smem = scan.bwd_occupancy(flat, bf16)
+            log(f"  I-bwd occupancy, {'flat' if flat else 'grouped'} "
+                f"{'bf16' if bf16 else 'fp32'}: {warps} resident warps per SM, {smem} bytes of "
+                f"shared memory a block, {scan.bwd_partials(384)} dB/dC partials at Dk = 384")
+    # determinism: no float atomics, so two runs give the same bits
+    a = scan._Args(*_scan_args(dev, (16, 4, 1000, 200), 46))
+    gy = torch.randn(a.u.shape, device=dev, generator=torch.Generator(dev).manual_seed(47))
+    hck = scan._scan_ckpt(a)
+    first, second = scan._scan_bwd(a, gy, hck), scan._scan_bwd(a, gy, hck)
+    require(all(torch.equal(x, y) for x, y in zip(first, second)),
+            "I-bwd gives the same bits on two runs")
+    log("  I-bwd at (16, 4, 1000, 200), fp32, twice: dus, ddt, dB, dC and dA bitwise equal")
+    del a, gy, hck, first, second
     # the 27 calls of one bf16 train step's backward
     ck = results["selective_scan_ckpt"]
     bw = results["selective_scan_bwd"]
-    tot = dict(ck=0.0, bw=0.0, ck_plain=0.0, bw_plain=0.0, ck_bytes=0.0, bw_bytes=0.0,
-               elems=0.0)
+    tot = dict(ck=0.0, bw=0.0, bw_kernel=0.0, ck_plain=0.0, bw_plain=0.0, ck_bytes=0.0,
+               bw_bytes=0.0, elems=0.0)
     for shape, count in SCAN_CALLS:
         args = _scan_args(dev, shape, 45, torch.bfloat16)
         gy = torch.randn(shape, device=dev, dtype=torch.bfloat16)
@@ -1335,6 +1478,7 @@ def phase_scan_bwd(dev, rate: float) -> dict:
         hck = scan._scan_ckpt(a)
         t_ck = cuda_ms(lambda: scan._scan_ckpt(a), iters=5, warmup=1)
         t_bw = cuda_ms(lambda: scan._scan_bwd(a, gy, hck), iters=5, warmup=1)
+        t_bk = launch_ms(lambda: scan._scan_bwd(a, gy, hck), "selective_scan_bwd")
         with torch.no_grad():
             t_fwd = cuda_ms(lambda: scan.cross_selective_scan_plain(*args), iters=2, warmup=1)
         ref = [x.detach().requires_grad_() for x in args]
@@ -1343,10 +1487,11 @@ def phase_scan_bwd(dev, rate: float) -> dict:
                                                      gy), iters=2, warmup=1)
         grads = scan._scan_bwd(a, gy, hck)
         B, K, L, Dk = shape
-        log(f"  {shape} x{count}: I-ckpt {t_ck:.4f} ms, I-bwd {t_bw:.4f} ms; plain forward "
-            f"{t_fwd:.4f}, plain backward {t_both - t_graph:.4f} ms")
+        log(f"  {shape} x{count}: I-ckpt {t_ck:.4f} ms, I-bwd {t_bw:.4f} ms (kernel alone "
+            f"{t_bk:.4f}); plain forward {t_fwd:.4f}, plain backward {t_both - t_graph:.4f} ms")
         tot["ck"] += count * t_ck
         tot["bw"] += count * t_bw
+        tot["bw_kernel"] += count * t_bk
         tot["ck_plain"] += count * t_fwd
         tot["bw_plain"] += count * (t_both - t_graph)
         tot["ck_bytes"] += count * nbytes(a.u, a.dt, a.Bm, hck)
@@ -1364,6 +1509,8 @@ def phase_scan_bwd(dev, rate: float) -> dict:
     for label, r in (("I-ckpt", ck), ("I-bwd", bw)):
         log(f"  one train step's 27 calls, bf16: {label} {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    log(f"  one train step's 27 calls, bf16: I-bwd's kernel alone {tot['bw_kernel']:.4f} ms "
+        "(CUDA events; the wrapper adds the dy cast and the sum of the dB and dC partials)")
     return results
 
 
@@ -1477,6 +1624,8 @@ def phase_flat_scan(dev, rate: float) -> dict:
         t_fwd = cuda_ms(lambda: scan._scan_fwd(a, S, seeds[0]), iters=3, warmup=1)
         t_ck = cuda_ms(lambda: scan._scan_ckpt(a, S, seeds[0]), iters=3, warmup=1)
         t_bw = cuda_ms(lambda: scan._scan_bwd(a, gy, hck, S, *seeds[1:]), iters=3, warmup=1)
+        t_bk = launch_ms(lambda: scan._scan_bwd(a, gy, hck, S, *seeds[1:]),
+                         "selective_scan_bwd", iters=3)
         hck_seq = scan._scan_ckpt(a)
         seq = (cuda_ms(lambda: scan._scan_fwd(a), iters=3, warmup=1),
                cuda_ms(lambda: scan._scan_ckpt(a), iters=3, warmup=1),
@@ -1493,11 +1642,13 @@ def phase_flat_scan(dev, rate: float) -> dict:
         grads = scan._scan_bwd(a, gy, hck, S, *seeds[1:])
         elems = B * G * L * Cg
         log(f"  ({B * G} rows, {L}, {Cg}) G={G} x{n}, S={S}: H-fwd {t_fwd:.4f} ms, H-ckpt "
-            f"{t_ck:.4f}, H-bwd {t_bw:.4f} (sequential {seq[0]:.4f}, {seq[1]:.4f}, "
-            f"{seq[2]:.4f}); plain forward {p_fwd:.4f}, plain backward {p_both - p_graph:.4f}")
+            f"{t_ck:.4f}, H-bwd {t_bw:.4f} (kernel alone {t_bk:.4f}; sequential {seq[0]:.4f}, "
+            f"{seq[1]:.4f}, {seq[2]:.4f}); plain forward {p_fwd:.4f}, plain backward "
+            f"{p_both - p_graph:.4f}")
         tot["fwd"] += n * t_fwd
         tot["ck"] += n * t_ck
         tot["bw"] += n * t_bw
+        tot["bw_kernel"] += n * t_bk
         for k, t in zip(("fwd_seq", "ck_seq", "bw_seq"), seq):
             tot[k] += n * t
         tot["fwd_plain"] += n * p_fwd
@@ -1519,7 +1670,8 @@ def phase_flat_scan(dev, rate: float) -> dict:
         **scan_bound(tot["bw_bytes"], 20 * 16 * e, 18 * e, rate))
     log(f"  one forward's 33 calls: {e:.4e} (row, step, channel) elements, {18 * e:.4e} exps; "
         f"on the sequential route H-fwd {tot['fwd_seq']:.4f} ms, H-ckpt {tot['ck_seq']:.4f} ms, "
-        f"H-bwd {tot['bw_seq']:.4f} ms")
+        f"H-bwd {tot['bw_seq']:.4f} ms; H-bwd's kernel alone on the shipped route "
+        f"{tot['bw_kernel']:.4f} ms (CUDA events)")
     for label, r in zip(("H-fwd (one forward, shipped route)",
                          "H-ckpt (one train step, shipped route)",
                          "H-bwd (one train step, shipped route)"), results.values()):
@@ -2554,13 +2706,13 @@ def main() -> None:
             cm_launches["selective_scan_fwd"], scan_fwd),
         row("selective_scan_ckpt", "selective_scan.cu", "scan_fused.py:261",
             cm_train_launches["selective_scan_ckpt"], scan_bwd["selective_scan_ckpt"]),
-        row("selective_scan_bwd", "selective_scan.cu", "scan_fused.py:291",
+        row("selective_scan_bwd", "selective_scan_bwd.cu", "scan_fused.py:291",
             cm_train_launches["selective_scan_bwd"], scan_bwd["selective_scan_bwd"]),
         row("selective_scan_fwd_flat", "selective_scan.cu", "scan_fused.py:754",
             cdm_eval["selective_scan_fwd_flat"], flat["selective_scan_fwd_flat"]),
         row("selective_scan_ckpt_flat", "selective_scan.cu", "scan_fused.py:754",
             cdm_train["selective_scan_ckpt_flat"], flat["selective_scan_ckpt_flat"]),
-        row("selective_scan_bwd_flat", "selective_scan.cu", "scan_fused.py:754",
+        row("selective_scan_bwd_flat", "selective_scan_bwd.cu", "scan_fused.py:754",
             cdm_train["selective_scan_bwd_flat"], flat["selective_scan_bwd_flat"]),
         row("selective_scan_carry", "selective_scan.cu", "scan_fused.py:188",
             cdm_train["selective_scan_carry"], seg["selective_scan_carry"]),

@@ -59,11 +59,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 // unnormalised as (g + 1) (size - 1) / 2 with kAlign (align_corners=True)
 // and as ((g + 1) size - 1) / 2 without (each step rounded on its own, as
 // the plain version rounds it: no contraction into an FMA). Border padding
-// (kZeros false) clamps it to [0, size - 1] before the floor (a NaN clamps
-// to 0) and takes x1 = min(x0 + 1, W - 1); zeros padding multiplies each
-// per-axis weight by its corner's validity and clamps the indices into the
-// image. idx[k * 2 + j] is the flat index of corner (y_k, x_j); wy[k], wx[j]
-// are the separable lerp weights.
+// (kZeros false) clamps it to [0, size - 1] before the floor and takes x1 =
+// min(x0 + 1, W - 1); zeros padding multiplies each per-axis weight by its
+// corner's validity and clamps the indices into the image. A NaN coordinate
+// keeps NaN lerp weights in both modes (fmaxf and fminf would drop it, so
+// the clamps see only a number) and floors to index 0, as XLA's float -> int
+// conversion and the plain version's nan_to_num give it: corners (0, 0),
+// (0, 1), (1, 0) and (1, 1). idx[k * 2 + j] is the flat index of corner
+// (y_k, x_j); wy[k], wx[j] are the separable lerp weights.
 struct Corners {
   int idx[4];
   float wy[2], wx[2];
@@ -80,8 +83,8 @@ __device__ __forceinline__ Corners bilinear_corners(float2 g, int H, int W) {
   float ix = unnormalize<kAlign>(g.x, W);
   float iy = unnormalize<kAlign>(g.y, H);
   if (!kZeros) {
-    ix = fminf(fmaxf(ix, 0.f), (float)(W - 1));
-    iy = fminf(fmaxf(iy, 0.f), (float)(H - 1));
+    ix = isnan(ix) ? ix : fminf(fmaxf(ix, 0.f), (float)(W - 1));
+    iy = isnan(iy) ? iy : fminf(fmaxf(iy, 0.f), (float)(H - 1));
   }
   const float fx0 = floorf(ix), fy0 = floorf(iy);
   const float tx = ix - fx0, ty = iy - fy0;
@@ -96,16 +99,16 @@ __device__ __forceinline__ Corners bilinear_corners(float2 g, int H, int W) {
     c.wx[1] *= (float)(fx0 + 1.f >= 0.f && fx0 + 1.f < (float)W);
     c.wy[0] *= (float)(fy0 >= 0.f && fy0 < (float)H);
     c.wy[1] *= (float)(fy0 + 1.f >= 0.f && fy0 + 1.f < (float)H);
-    // -1 .. size before the clamp, so a far or NaN coordinate stays in range
-    const int xl = (int)fminf(fmaxf(fx0, -1.f), (float)W);
-    const int yl = (int)fminf(fmaxf(fy0, -1.f), (float)H);
+    // -1 .. size before the clamp, so a far coordinate stays in range
+    const int xl = isnan(fx0) ? 0 : (int)fminf(fmaxf(fx0, -1.f), (float)W);
+    const int yl = isnan(fy0) ? 0 : (int)fminf(fmaxf(fy0, -1.f), (float)H);
     x0 = min(max(xl, 0), W - 1);
     y0 = min(max(yl, 0), H - 1);
     x1 = min(max(xl + 1, 0), W - 1);
     y1 = min(max(yl + 1, 0), H - 1);
   } else {
-    x0 = (int)fx0;
-    y0 = (int)fy0;
+    x0 = isnan(fx0) ? 0 : (int)fx0;
+    y0 = isnan(fy0) ? 0 : (int)fy0;
     x1 = min(x0 + 1, W - 1);
     y1 = min(y0 + 1, H - 1);
   }

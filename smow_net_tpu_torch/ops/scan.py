@@ -56,6 +56,8 @@ keeps one (rows, Dk, N) state per chunk and no fp32 copy of the inputs.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -64,11 +66,12 @@ from . import _kernels
 __all__ = ["selective_scan", "selective_scan_plain", "selective_scan_step",
            "cross_selective_scan", "cross_selective_scan_plain", "softplus", "seg_count",
            "fwd_segmented", "bwd_segmented", "scan_carry_plain", "scan_adjcarry_plain",
-           "scan_states", "scan_states_plain"]
+           "scan_states", "scan_states_plain", "bwd_partials", "bwd_occupancy"]
 
 N_STATE = 16        # d_state built into the kernels (kN in csrc/selective_scan.cu)
 CKPT_CHUNK = 16     # I-ckpt's checkpoint interval (kChunk)
-BLOCK_CHANNELS = 16     # channels per kernel block: one dB/dC partial each (kChannels)
+BLOCK_CHANNELS = 16     # channels per block of the forward sweeps (kChannels)
+BWD_BLOCK_CHANNELS = 32     # channels per I-bwd block: one dB/dC partial each (kBlockChannels)
 _PLAIN_CHUNK = 256
 
 # The segmented route of the flat contract on the card (`seg_count`): rows of
@@ -349,16 +352,23 @@ def _scan_ckpt(a: _Args, S: int = 1, h0=None) -> torch.Tensor:
     return hck
 
 
+def bwd_partials(Cg: int) -> int:
+    """The dB and dC partials kernel I-bwd writes for Cg channels: one per
+    block of BWD_BLOCK_CHANNELS."""
+    return -(-Cg // BWD_BLOCK_CHANNELS)
+
+
 def _scan_bwd(a: _Args, gy: torch.Tensor, hck: torch.Tensor, S: int = 1, g0=None, a0=None):
     """Kernel I-bwd from I-ckpt's states (and, per segment row, the incoming
     adjoint g0 and decay a0, (rows*S, N, Cg)): (dus, ddt) in u's layout, (dB,
-    dC) in Bm's, fp32, summed over the channel blocks here, and dA (rows*S,
-    N, Cg); ddt is with respect to dt after the softplus."""
+    dC) in Bm's, fp32, summed over the channel blocks' partials here (a
+    single partial is returned as it is), and dA (rows*S, N, Cg); ddt is
+    with respect to dt after the softplus."""
     f32 = dict(dtype=torch.float32, device=a.u.device)
     dy = gy.to(a.u.dtype).contiguous()
     dus = torch.empty(a.u.shape, **f32)
     ddt = torch.empty_like(dus)
-    dBp = torch.empty((-(-a.Cg // BLOCK_CHANNELS),) + tuple(a.Bm.shape), **f32)
+    dBp = torch.empty((bwd_partials(a.Cg),) + tuple(a.Bm.shape), **f32)
     dCp = torch.empty_like(dBp)
     dA = a.states(S)
     _kernels.call("selective_scan_bwd", a.u.data_ptr(), a.dt.data_ptr(), a.Bm.data_ptr(),
@@ -366,7 +376,23 @@ def _scan_bwd(a: _Args, gy: torch.Tensor, hck: torch.Tensor, S: int = 1, g0=None
                   hck.data_ptr(), _ptr(g0), _ptr(a0), dus.data_ptr(), ddt.data_ptr(),
                   dBp.data_ptr(), dCp.data_ptr(), dA.data_ptr(), *a.dims(S),
                   label=a.label("selective_scan_bwd"))
+    if len(dBp) == 1:
+        return dus, ddt, dBp[0], dCp[0], dA
     return dus, ddt, dBp.sum(0), dCp.sum(0), dA
+
+
+def bwd_occupancy(flat: bool, bf16: bool) -> tuple:
+    """Kernel I-bwd's resident warps per SM on the current card
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and its shared memory
+    per block in bytes, for the layout and dtype."""
+    warps, smem = ctypes.c_int(0), ctypes.c_int(0)
+    lib = _kernels.library()
+    rc = lib.selective_scan_bwd_occupancy(int(flat), int(bf16), ctypes.byref(warps),
+                                          ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"selective_scan_bwd_occupancy: CUDA error {rc} "
+                           f"({lib.smow_cuda_error_string(rc).decode()})")
+    return warps.value, smem.value
 
 
 def scan_carry(a: _Args, S: int):

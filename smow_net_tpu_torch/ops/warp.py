@@ -74,9 +74,9 @@ def corner_rows(grid: torch.Tensor, H: int, W: int, padding_mode: str = "border"
     weights wy0, wy1, wx0, wx1, each grid.shape[:-1]. Under border padding
     the coordinate is clamped to [0, size - 1] before the floor; under zeros
     padding each per-axis weight is multiplied by its corner's validity.
-    The indices are clamped into the image. A NaN coordinate gets corner
-    index 0 (as the kernels' fmaxf clamp and XLA's float -> int conversion
-    give it under border padding) and NaN weights."""
+    The indices are clamped into the image. A NaN coordinate gets NaN
+    weights and corner index 0 (as XLA's float -> int conversion gives it),
+    so its corners are rows and columns 0 and 1, in both padding modes."""
     _check_mode(padding_mode)
     ix = _unnormalize(grid[..., 0], W, align_corners)
     iy = _unnormalize(grid[..., 1], H, align_corners)
@@ -90,7 +90,7 @@ def corner_rows(grid: torch.Tensor, H: int, W: int, padding_mode: str = "border"
         wx1 = wx1 * ((ix0 + 1 >= 0) & (ix0 + 1 < W))
         wy0 = wy0 * ((iy0 >= 0) & (iy0 < H))
         wy1 = wy1 * ((iy0 + 1 >= 0) & (iy0 + 1 < H))
-    # -1 .. size before the clamp, so a far or NaN coordinate stays in range
+    # -1 .. size before the clamp, so a far coordinate stays in range
     x0 = torch.nan_to_num(ix0, nan=0.0).clamp(-1.0, W).long()
     y0 = torch.nan_to_num(iy0, nan=0.0).clamp(-1.0, H).long()
     x1, y1 = (x0 + 1).clamp(0, W - 1), (y0 + 1).clamp(0, H - 1)
@@ -105,8 +105,9 @@ def corner_weights_vjp(grid: torch.Tensor, dw: torch.Tensor, H: int, W: int,
     Under border padding the clamp to [0, size - 1] passes the gradient
     where the unclamped coordinate lies inside it, ends included
     (torch.clamp's rule); under zeros padding the validities are constants
-    of the floor, so d/di = dw1 valid(i0 + 1) - dw0 valid(i0). di/dg is
-    (size - 1) / 2 with align_corners, size / 2 without."""
+    of the floor, so d/di = dw1 valid(i0 + 1) - dw0 valid(i0), with a NaN
+    floor taken as index 0 (`corner_rows`' corners). di/dg is (size - 1) /
+    2 with align_corners, size / 2 without."""
     _check_mode(padding_mode)
 
     def axis(g, d0, d1, size):
@@ -114,7 +115,7 @@ def corner_weights_vjp(grid: torch.Tensor, dw: torch.Tensor, H: int, W: int,
         if padding_mode == "border":
             d = (d1 - d0) * ((i >= 0) & (i <= size - 1))
         else:
-            i0 = torch.floor(i)
+            i0 = torch.nan_to_num(torch.floor(i), nan=0.0)
             d = d1 * ((i0 + 1 >= 0) & (i0 + 1 < size)) - d0 * ((i0 >= 0) & (i0 < size))
         return d * (0.5 * (size - 1) if align_corners else 0.5 * size)
 

@@ -42,6 +42,14 @@ def _close(got, want, atol, rtol):
     assert err <= atol + rtol * want.abs().max().item(), err
 
 
+def _close_nan(got, want, atol, rtol):
+    """NaN at the same elements, the finite ones as `_close` holds them."""
+    got, want = got.float(), want.float()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    _close(got[~nan], want[~nan], atol, rtol)
+
+
 @pytest.mark.parametrize("C", [8, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_token_scatter_kernel_matches_plain(dev, C, dtype):
@@ -388,7 +396,7 @@ def scatter_grid(kind, B, Hg, Wg, seed):
     corners cover the whole image. "clamped": the smooth grid with x = 1,
     so a tile row's pixels all hit one column (the most corners in one
     cell). "nan": the smooth grid with a NaN at the last pixel, whose
-    corner (0, 0) stretches its tile's box over the image."""
+    corners at (0, 0) stretch its tile's box over the image."""
     rng = np.random.default_rng(seed)
     if kind == "far":
         return rng.uniform(-1.2, 1.2, size=(B, Hg, Wg, 2)).astype(np.float32)
@@ -401,10 +409,8 @@ def scatter_grid(kind, B, Hg, Wg, seed):
     return grid.astype(np.float32)
 
 
-# (mode, kind): every grid kind in each (padding_mode, align_corners) pair;
-# the NaN grid under border padding only (see the test)
-SCATTER_CASES = [(m, k) for m in MODES for k in ("smooth", "far", "clamped", "nan")
-                 if k != "nan" or m[0] == "border"]
+# (mode, kind): every grid kind in each (padding_mode, align_corners) pair
+SCATTER_CASES = [(m, k) for m in MODES for k in ("smooth", "far", "clamped", "nan")]
 
 
 @pytest.mark.parametrize("mode,kind", SCATTER_CASES,
@@ -422,18 +428,15 @@ def test_tile_scatter_kernels_match_plain(dev, mode, kind, C, dtype):
     weight rows to 1e-5.
 
     The "smooth" and "clamped" grids take the sorted path, "far" the direct
-    one (the whole image's 2400 cells), "nan" both in one launch. A NaN
-    coordinate is the image's low end to the kernels (common.cuh
-    `bilinear_corners` clamps with fmaxf, which drops the NaN), where the
-    plain version, like JAX, makes NaN weights: the plain side gets -1, the
-    coordinate the kernels' clamp gives (ROADMAP.md, faults)."""
+    one (the whole image's 2400 cells), "nan" both in one launch. On the
+    NaN grid both sides are held on the same grid (the contract of
+    tests/test_torch_warp_nan.py: NaN weights, corners at rows and columns
+    0 and 1), NaN at the same elements."""
     B, Hg, Wg, H, W = 3, 37, 45, 48, 50
-    grid_np = scatter_grid(kind, B, Hg, Wg, 50 + C)
+    grid = torch.from_numpy(scatter_grid(kind, B, Hg, Wg, 50 + C)).to(dev)
     rng = np.random.default_rng(60 + C)
     x = torch.from_numpy(rng.normal(size=(B, H, W, C)).astype(np.float32)).to(dev, dtype)
     g = torch.from_numpy(rng.normal(size=(B, Hg, Wg, C)).astype(np.float32)).to(dev, dtype)
-    grid = torch.from_numpy(grid_np).to(dev)
-    ref_grid = torch.from_numpy(np.nan_to_num(grid_np, nan=-1.0)).to(dev)
     rtol = 1e-5 if dtype == torch.float32 else BF16_REL
     before = {n: _kernels.launches[n] for n in ("grid_sample_transpose", "grid_sample_bwd")}
     out = warp.grid_sample_transpose(g, grid, (H, W), *mode)
@@ -441,10 +444,84 @@ def test_tile_scatter_kernels_match_plain(dev, mode, kind, C, dtype):
     torch.cuda.synchronize()
     assert all(_kernels.launches[n] == c + 1 for n, c in before.items())
     assert out.dtype == dx.dtype == dtype and out.shape == dx.shape == x.shape
-    _close(out, warp.grid_sample_transpose_plain(g.float(), ref_grid, (H, W), *mode), 0.0, rtol)
-    dx_p, dw_p = warp.grid_sample_bwd_plain(x.float(), g.float(), ref_grid, *mode)
-    _close(dx, dx_p, 0.0, rtol)
-    _close(dw, dw_p, 0.0, 1e-5)
+    _close_nan(out, warp.grid_sample_transpose_plain(g.float(), grid, (H, W), *mode), 0.0, rtol)
+    dx_p, dw_p = warp.grid_sample_bwd_plain(x.float(), g.float(), grid, *mode)
+    _close_nan(dx, dx_p, 0.0, rtol)
+    _close_nan(dw, dw_p, 0.0, 1e-5)
+    assert (kind == "nan") == bool(torch.isnan(out).any())
+
+
+def _with_nans(grid):
+    """A copy of `grid` (B >= 2, Hg >= 4, Wg >= 5) with a NaN x, a NaN y and
+    both NaN at interior pixels, and both NaN at the last pixel."""
+    grid = grid.clone()
+    grid[0, 1, 2, 0] = float("nan")
+    grid[0, 2, 3, 1] = float("nan")
+    grid[1, 3, 4] = float("nan")
+    grid[-1, -1, -1] = float("nan")
+    return grid
+
+
+@pytest.mark.parametrize("mode", MODES, ids=["border_align", "border_half", "zeros_align",
+                                             "zeros_half"])
+@pytest.mark.parametrize("C", [8, 32])
+def test_warp_kernels_on_a_nan_grid_match_plain(dev, C, mode):
+    """A-fwd, B, C and A-bwd in each (padding_mode, align_corners) pair on
+    one grid with NaN coordinates, against their plain versions on the same
+    grid, fp32: NaN at the same elements of every output, the weight rows
+    and dgrid; the finite elements at the tolerances of
+    `test_warp_kernels_in_each_mode_match_plain`."""
+    g = torch.Generator(dev).manual_seed(70 + C)
+    x = torch.randn(2, 24, 64, C, device=dev, generator=g)
+    other = torch.randn(2, 24, 64, C, device=dev, generator=g)
+    grid = _with_nans(torch.rand(2, 24, 64, 2, device=dev, generator=g) * 2.4 - 1.2)
+    size = (24, 64)
+    pairs = ((warp.grid_sample(x, grid, *mode), warp.grid_sample_plain(x, grid, *mode)),
+             (warp.grid_sample_transpose(other, grid, size, *mode),
+              warp.grid_sample_transpose_plain(other, grid, size, *mode)),
+             (warp.grid_sample_t_vjp(x, other, grid, *mode),
+              warp.grid_sample_t_vjp_plain(x, other, grid, *mode)),
+             (warp.grid_sample_bwd(x, other, grid, *mode),
+              warp.grid_sample_bwd_plain(x, other, grid, *mode)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        if isinstance(got, tuple):
+            _close_nan(got[0], want[0], 1e-5, 1e-5)
+            _close_nan(got[1], want[1], 1e-5, 1e-4)
+            _close_nan(warp.corner_weights_vjp(grid, got[1], *size, *mode),
+                       warp.corner_weights_vjp(grid, want[1], *size, *mode), 1e-5, 1e-4)
+        else:
+            _close_nan(got, want, 1e-5, 1e-5)
+            assert bool(torch.isnan(got).any())
+
+
+@pytest.mark.parametrize("C", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_token_kernels_on_a_nan_grid_match_plain(dev, C, dtype):
+    """D, E and D-bwd (border padding, align_corners) on a flow grid with
+    NaN coordinates against their plain versions on the same grid: NaN at
+    the same elements, the finite ones as the token kernels' tests hold
+    them."""
+    a, grid, ew_bar = _token_inputs(dev, C, dtype, 80 + C)
+    grid = _with_nans(grid)
+    m = a.amax(dim=(1, 2)).float()
+    dz = torch.from_numpy(np.random.default_rng(C).normal(size=(4, C)).astype(np.float32)).to(dev)
+    names = ("token_scatter_fwd", "token_scatter_fwd_eaw", "token_scatter_bwd")
+    before = {n: _kernels.launches[n] for n in names}
+    got = (warp.token_scatter(a, grid, m), warp.token_scatter(a, grid, m, residual=True),
+           warp.token_scatter_bwd(a, grid, m, ew_bar, dz))
+    torch.cuda.synchronize()
+    assert all(_kernels.launches[n] == c + 1 for n, c in before.items())
+    want = (warp.token_scatter_plain(a.float(), grid, m),
+            warp.token_scatter_plain(a.float(), grid, m, residual=True),
+            warp.token_scatter_bwd_plain(a.float(), grid, m, ew_bar.float(), dz))
+    rtol = 1e-5 if dtype == torch.float32 else BF16_REL
+    for outs, refs in zip(got[:2], want[:2]):
+        for g, w in zip(outs, refs):
+            _close_nan(g, w, 1e-5, rtol)
+    _close_nan(got[2][0], want[2][0], 1e-5, rtol)
+    _close_nan(got[2][1], want[2][1], 1e-5, 1e-4)
+    assert all(bool(torch.isnan(t).any()) for t in got[0] + got[1] + got[2])
 
 
 def test_unfused_token_chain_gradient_kernel_path_matches_plain(dev):
@@ -527,18 +604,28 @@ def test_scan_fwd_kernel_matches_plain(dev, shape, dtype):
     _close(y, want, 1e-6, 1e-5 if dtype == torch.float32 else BF16_REL)
 
 
-@pytest.mark.parametrize("shape", [(2, 4, 256, 64), (1, 4, 100, 40)])
-def test_scan_bwd_kernels_match_autograd_of_plain(dev, shape):
-    """I-ckpt + I-bwd + the epilogue: all seven input gradients, fp32."""
-    args = [a.requires_grad_() for a in _scan_inputs(dev, shape, 21)]
-    gy = torch.from_numpy(np.random.default_rng(22).normal(size=shape).astype(np.float32)).to(dev)
+# Dk = 40 and 8 leave an idle tail of I-bwd's 32-channel blocks; L = 100 a
+# ragged last chunk
+@pytest.mark.parametrize("shape", [(2, 4, 256, 64), (1, 4, 100, 40), (1, 4, 100, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_scan_bwd_kernels_match_autograd_of_plain(dev, shape, dtype):
+    """I-ckpt + I-bwd + the epilogue: all seven input gradients (fp32: 1e-4
+    of each largest element; bf16: against the plain version in fp32 on the
+    same bf16 values, one rounding of the cast)."""
+    args = _scan_inputs(dev, shape, 21)
+    args = [(a.to(dtype) if i in (0, 1, 3, 4) else a).requires_grad_()
+            for i, a in enumerate(args)]
+    gy = torch.from_numpy(np.random.default_rng(22).normal(size=shape).astype(np.float32)).to(
+        dev, dtype)
     before = {n: _kernels.launches[n] for n in ("selective_scan_ckpt", "selective_scan_bwd")}
     got = torch.autograd.grad(scan.cross_selective_scan(*args), args, gy)
     torch.cuda.synchronize()
     assert all(_kernels.launches[n] == c + 1 for n, c in before.items())
-    want = torch.autograd.grad(scan.cross_selective_scan_plain(*args), args, gy)
-    for g, w in zip(got, want):
-        _close(g, w, 1e-6, 1e-4)
+    ref = [a.detach().float().requires_grad_() for a in args]
+    want = torch.autograd.grad(scan.cross_selective_scan_plain(*ref), ref, gy.float())
+    for g, w, a in zip(got, want, args):
+        assert g.dtype == a.dtype
+        _close(g, w, 1e-6, 1e-4 if dtype == torch.float32 else BF16_REL)
 
 
 def _no_softplus(args):
@@ -592,10 +679,12 @@ FLAT = ("selective_scan_fwd_flat", "selective_scan_ckpt_flat", "selective_scan_b
 SEG = ("selective_scan_carry", "selective_scan_adjcarry")
 
 
-# Cg = 40 leaves an idle tail of the 16-channel blocks; L = 100 a ragged
-# last 16-step chunk; (16, 16384, 2, 64) is one of CD-Mamba's shapes, which
-# the shipped route (`seg_count`) cuts into 16 segments per row
-@pytest.mark.parametrize("B,L,G,Cg", [(2, 256, 2, 32), (2, 100, 1, 40), (16, 16384, 2, 64)])
+# Cg = 40 and 8 leave an idle tail of the 16-channel blocks of the forward
+# sweeps and of I-bwd's 32-channel blocks; L = 100 a ragged last 16-step
+# chunk; (16, 16384, 2, 64) is one of CD-Mamba's shapes, which the shipped
+# route (`seg_count`) cuts into 16 segments per row
+@pytest.mark.parametrize("B,L,G,Cg", [(2, 256, 2, 32), (2, 100, 1, 40), (2, 100, 2, 8),
+                                      (16, 16384, 2, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_flat_scan_kernels_match_plain(dev, B, L, G, Cg, dtype):
     """Kernel H: I's three sweeps reading the flat layout in place, the
@@ -648,21 +737,73 @@ def test_seg_carry_and_adjcarry_kernels_match_plain(dev, flat):
     _close(gloc, scan.scan_adjcarry_plain(a, gy, 4), 1e-6, 1e-5)
 
 
-def test_seeded_sweeps_match_plain(dev):
+def _seeded_args(dev, flat, dtype, Cg, L, seed):
+    """A scan of 2 x 2 rows of L steps and Cg channels in the flat or the
+    grouped layout, u, delta, B and C in `dtype`, as `scan._Args`."""
+    args = _flat_inputs(dev, 2, L, 2, Cg, seed, dtype)
+    if not flat:                        # the same values in the grouped layout
+        args = [args[0].reshape(2, L, 2, Cg).transpose(1, 2),
+                args[1].reshape(2, L, 2, Cg).transpose(1, 2), args[2],
+                args[3].transpose(1, 2), args[4].transpose(1, 2), args[5], args[6]]
+    return scan._Args(*args, flat=flat)
+
+
+@pytest.mark.parametrize("Cg", [40, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("flat", [True, False], ids=["flat", "grouped"])
+def test_seeded_sweeps_match_plain(dev, flat, dtype, Cg):
     """I-fwd, I-ckpt and I-bwd seeded with a state h0, an adjoint g0 and a
-    decay a0 per segment row, on 4 segment rows of the flat layout, against
-    the plain seeded scan and its autograd."""
-    args = _flat_inputs(dev, 2, 256, 2, 40, 34)
-    a = scan._Args(*args, flat=True)
+    decay a0 per segment row, on 4 segment rows of 100 steps (a ragged last
+    chunk) in either layout, against the plain seeded scan and its autograd
+    on the same values in fp32 (y: 1e-5, or one rounding in bf16; the
+    sweeps' fp32 outputs: 1e-4)."""
+    a = _seeded_args(dev, flat, dtype, Cg, 400, 34)
     g = torch.Generator(dev).manual_seed(35)
-    h0, g0 = (torch.randn(a.rows * 4, 16, 40, device=dev, generator=g) for _ in range(2))
-    a0 = torch.rand(a.rows * 4, 16, 40, device=dev, generator=g)
-    gy = torch.randn(a.u.shape, device=dev, generator=g)
+    h0, g0 = (torch.randn(a.rows * 4, 16, Cg, device=dev, generator=g) for _ in range(2))
+    a0 = torch.rand(a.rows * 4, 16, Cg, device=dev, generator=g)
+    gy = torch.randn(a.u.shape, device=dev, generator=g).to(dtype)
     y = scan._scan_fwd(a, 4, h0)
     sweeps = scan._scan_bwd(a, gy, scan._scan_ckpt(a, 4, h0), 4, g0, a0)
     torch.cuda.synchronize()
-    _close(y, scan.scan_fwd_plain(a, 4, h0), 1e-6, 1e-5)
+    _close(y, scan.scan_fwd_plain(a, 4, h0).float(), 1e-6,
+           1e-5 if dtype == torch.float32 else BF16_REL)
     for got, want in zip(sweeps, scan.scan_bwd_plain(a, gy, 4, h0, g0, a0)):
+        _close(got, want, 1e-6, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("flat", [True, False], ids=["flat", "grouped"])
+def test_scan_bwd_kernel_is_deterministic(dev, flat, dtype):
+    """I-bwd sums without float atomics: two runs on the same seeded inputs
+    (Cg = 72: two full 32-channel blocks and an idle tail; 4 segment rows of
+    100 steps) give bitwise equal dus, ddt, dB, dC and dA."""
+    a = _seeded_args(dev, flat, dtype, 72, 400, 36)
+    g = torch.Generator(dev).manual_seed(37)
+    h0, g0 = (torch.randn(a.rows * 4, 16, 72, device=dev, generator=g) for _ in range(2))
+    a0 = torch.rand(a.rows * 4, 16, 72, device=dev, generator=g)
+    gy = torch.randn(a.u.shape, device=dev, generator=g).to(dtype)
+    hck = scan._scan_ckpt(a, 4, h0)
+    first = scan._scan_bwd(a, gy, hck, 4, g0, a0)
+    second = scan._scan_bwd(a, gy, hck, 4, g0, a0)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("Cg", [8, 32, 40, 64, 72])
+def test_scan_bwd_writes_one_partial_per_32_channels(dev, Cg):
+    """I-bwd writes ceil(Cg / 32) partials of dB and dC, which the wrapper
+    sums (one partial is returned as it is, a view of its buffer), and the
+    result is the plain version's (fp32, 1e-4)."""
+    a = _seeded_args(dev, True, torch.float32, Cg, 64, 38)
+    gy = torch.randn(a.u.shape, device=dev, generator=torch.Generator(dev).manual_seed(39))
+    parts = scan.bwd_partials(Cg)
+    assert parts == -(-Cg // 32)
+    dus, ddt, dB, dC, dA = scan._scan_bwd(a, gy, scan._scan_ckpt(a))
+    torch.cuda.synchronize()
+    for t in (dB, dC):
+        assert (t._base is not None and t._base.shape[0] == 1) == (parts == 1)
+    for got, want in zip((dus, ddt, dB, dC, dA), scan.scan_bwd_plain(a, gy)):
         _close(got, want, 1e-6, 1e-4)
 
 
@@ -760,15 +901,17 @@ def test_states_scan_route_matches_plain(dev, N):
                1e-6, rel)
 
 
+@pytest.mark.parametrize("Cg", [16, 8])
 @pytest.mark.parametrize("flat", [True, False], ids=["flat_H", "grouped_I"])
-def test_scan_kernels_take_more_rows_than_the_grid_y_extent(dev, flat):
-    """About 70000 rows of 16 steps: H (flat) and I (grouped) forward and
-    backward against the plain version, fp32."""
+def test_scan_kernels_take_more_rows_than_the_grid_y_extent(dev, flat, Cg):
+    """About 70000 rows of 16 steps, Cg channels (8: an idle tail of every
+    block): H (flat) and I (grouped) forward and backward against the plain
+    version, fp32."""
     if flat:
-        args = _flat_inputs(dev, 35000, 16, 2, 16, 41)
+        args = _flat_inputs(dev, 35000, 16, 2, Cg, 41)
         fn, plain = scan.selective_scan, scan.selective_scan_plain
     else:
-        args = _scan_inputs(dev, (17500, 4, 16, 16), 42)
+        args = _scan_inputs(dev, (17500, 4, 16, Cg), 42)
         fn, plain = scan.cross_selective_scan, scan.cross_selective_scan_plain
     args = [a.requires_grad_() for a in args]
     gy = torch.randn(args[0].shape, device=dev, generator=torch.Generator(dev).manual_seed(43))

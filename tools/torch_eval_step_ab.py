@@ -1,18 +1,24 @@
 #!/usr/bin/env python
-"""Time one model's bf16 eval step from a given checkout of the PyTorch port,
-on one NVIDIA GPU, for A/B runs between two commits.
+"""Time one model's bf16 eval step, or its train step, from a given checkout
+of the PyTorch port, on one NVIDIA GPU, for A/B runs between two commits.
 
     python tools/torch_eval_step_ab.py --tree PATH [--model smow_net] [--rounds 6]
+    python tools/torch_eval_step_ab.py --tree PATH --step train --model change_mamba
 
 Imports `smow_net_tpu_torch` and `chip_smoke` from PATH (the root of a
 checkout, e.g. a `git archive` of the parent commit unpacked into a
 directory that .gitignore lists), builds the model on the card with
-`chip_smoke.seeded_state_dict`'s numpy-seeded weights in bf16, and runs
-`make_eval_step` on batches of 16 pairs at 256 x 256: one warm-up batch,
-then `rounds` rounds of 5 batches, each batch timed with CUDA events. Prints
-one JSON line: the tree, the card's name and power limit, and the median
-and quartiles of ms per batch. Run it in separate processes for parent,
-change, change, parent within one call, and compare the medians there.
+`chip_smoke.seeded_state_dict`'s numpy-seeded weights and runs, on 16 pairs
+at 256 x 256, either `make_eval_step` in bf16 on 3 batches or, with `--step
+train`, chip_smoke.py's train step (`_train_setup`: bf16 compute over fp32
+masters, clip + AdamW) on one repeated batch: one warm-up call, then
+`rounds` rounds of 5 calls, each timed with CUDA events; then 3 calls under
+torch.profiler, whose device events give the device's busy time per call
+and the kernels it launches per call. Prints one JSON line: the tree, the
+card's name and power limit, the median and quartiles of ms per call, and
+the busy ms and share (busy over the median: the rest of the step the card
+waits). Run it in separate processes for parent, change, change, parent
+within one call, and compare the medians there.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", required=True, help="root of the checkout to time")
     ap.add_argument("--model", default="smow_net")
+    ap.add_argument("--step", choices=("eval", "train"), default="eval")
     ap.add_argument("--rounds", type=int, default=6)
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
@@ -39,6 +46,8 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("torch_eval_step_ab: no CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
     import chip_smoke
     from smow_net_tpu_torch.models import get_model
     from smow_net_tpu_torch.ops import _kernels
@@ -51,11 +60,17 @@ def main() -> None:
                           check=True).stdout.strip()
     dev = torch.device("cuda", 0)
     _kernels.library()
-    model = get_model(args.model)
-    model.load_state_dict(chip_smoke.seeded_state_dict(model, 0))
-    step = make_eval_step(model.to(torch.bfloat16))
-    batches = chip_smoke.make_batches(dev, 3, 16, 256, seed=7)
-    step(batches[0])
+    if args.step == "train":
+        model, state, step = chip_smoke._train_setup(args.model, torch.bfloat16, 100)
+        batch = chip_smoke.make_batches(dev, 1, 16, 256, seed=8)[0]
+        run = lambda i: step(state, batch)
+    else:
+        model = get_model(args.model)
+        model.load_state_dict(chip_smoke.seeded_state_dict(model, 0))
+        step = make_eval_step(model.to(torch.bfloat16))
+        batches = chip_smoke.make_batches(dev, 3, 16, 256, seed=7)
+        run = lambda i: step(batches[i % len(batches)])
+    run(0)
     torch.cuda.synchronize()
     times = []
     for _ in range(args.rounds):
@@ -63,14 +78,21 @@ def main() -> None:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            step(batches[i % len(batches)])
+            run(i)
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
     q1, median, q3 = np.percentile(times, [25, 50, 75])
-    print(json.dumps({"tree": args.tree, "model": args.model, "card": card,
-                      "ms_per_batch": {"median": median, "q1": q1, "q3": q3,
-                                       "batches": len(times)}}))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            run(i)
+        torch.cuda.synchronize()
+    on_device = chip_smoke.device_events(prof.key_averages())
+    busy = sum(e.self_device_time_total for e in on_device) / 1e3 / 3
+    print(json.dumps({"tree": args.tree, "model": args.model, "step": args.step, "card": card,
+                      "ms_per_call": {"median": median, "q1": q1, "q3": q3, "calls": len(times)},
+                      "busy_ms": busy, "busy_share": busy / median,
+                      "kernels_per_call": sum(e.count for e in on_device) / 3}))
 
 
 if __name__ == "__main__":
