@@ -86,9 +86,12 @@ Phases (any failure raises and exits non-zero; no result line is printed):
   13. kernel I-fwd (`selective_scan_fwd`) vs `cross_selective_scan_plain`,
      fp32 and bf16, at (B, K, L, Dk) = (32, 4, 4096, 192), (32, 4, 256, 768),
      (16, 4, 8192, 256) and (2, 4, 1000, 200) (Dk not a multiple of the
-     16-channel blocks, L not of the 16-step chunks); then its time summed
-     over the 27 calls of one ChangeMamba forward at 16 x 256^2, bf16
-  14. kernel I-ckpt's chunk-start states vs a plain step-by-step loop, and
+     32-channel blocks, L not of the 16-step chunks); the forward sweep's
+     registers and spills (ptxas) and its resident warps per SM and shared
+     memory per block (the CUDA occupancy calculator) in the grouped layout;
+     then its time summed over the 27 calls of one ChangeMamba forward at
+     16 x 256^2, bf16
+  14. kernel I-ckpt's chunk-start states vs the plain I-ckpt, and
      I-ckpt + I-bwd (with the epilogue) vs torch.autograd.grad of the plain
      version: all seven input gradients at (32, 4, 1024, 384) and
      (16, 4, 8192, 256), fp32; I-bwd's registers and spills (ptxas), its
@@ -114,10 +117,12 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      gradients at (rows, L, Cg) = (64, 65536, 32) G = 2 (fp32 and bf16),
      (32, 65536, 32) G = 1, (64, 16384, 64), (64, 4096, 128) (fp32 and bf16)
      and (64, 1024, 256), and H-ckpt's chunk-start states at (64, 1024, 256)
-     against a plain loop; then H-fwd's time summed over the 33 calls of one
-     CD-Mamba forward at 16 x 256^2, and H-ckpt's and H-bwd's over one train
-     step's, bf16, on the shipped route (each call cut into `seg_count`
-     segments, seeded, as the main path runs them) and sequential
+     against the plain I-ckpt; the forward sweep's build and residency in
+     the flat layout (as phase 13); then H-fwd's time summed over the 33
+     calls of one CD-Mamba forward at 16 x 256^2, and H-ckpt's and H-bwd's
+     over one train step's, bf16, on the shipped route (each call cut into
+     `seg_count` segments, seeded, as the main path runs them) and
+     sequential
   20. the shipped route (each call cut into `seg_count` segments) at every
      CD-Mamba scan shape, fp32 and bf16: kernels H-seg carry and adjcarry,
      and H-fwd, H-ckpt and H-bwd seeded as the segmented route seeds them,
@@ -185,7 +190,9 @@ forward's 27 calls (one train step's for I-ckpt and I-bwd), with the bound
 of the same work. Their plain times: the plain scan (no grad) for I-fwd and
 for I-ckpt (it computes the states I-ckpt keeps); for I-bwd the plain
 backward (autograd through the checkpointed plain scan, which recomputes
-each chunk), timed as forward + backward less the forward with its graph.
+each chunk), timed as forward + backward less the forward with its graph;
+each plain time is one call with no warm-up, as phase 19 takes H's (the
+plain scans' seconds would otherwise crowd the script's time limit).
 
 """
 
@@ -1364,6 +1371,26 @@ def _scan_args(dev, shape, seed, dtype=torch.float32):
             f(B, K, L, 16).to(dtype), f(K * Dk, scale=0.1, off=1.0), bias.to(dev)]
 
 
+def log_fwd_build(flat: bool) -> None:
+    """The forward sweep's (`scan_fwd_kernel`: I-fwd, I-ckpt and the carry)
+    build and residency in one layout: the ptxas lines (registers, spills)
+    of its instantiations in both dtypes and three modes, and its resident
+    warps per SM and shared memory per block (the CUDA occupancy
+    calculator)."""
+    from smow_net_tpu_torch.ops import scan
+
+    for line in ptxas_lines("scan_fwd_kernel"):
+        m = re.search(r"scan_fwd_kernelI\w+?Li\dELb([01])E", line)
+        if m and m.group(1) == str(int(flat)):
+            log("  ptxas " + line)
+    for mode in scan.FWD_MODES:
+        for bf16 in (False, True):
+            warps, smem = scan.fwd_occupancy(mode, flat, bf16)
+            log(f"  forward sweep occupancy, {mode} {'flat' if flat else 'grouped'} "
+                f"{'bf16' if bf16 else 'fp32'}: {warps} resident warps per SM, {smem} bytes of "
+                "shared memory a block")
+
+
 def phase_scan_fwd(dev, rate: float) -> dict:
     from smow_net_tpu_torch.ops import scan
 
@@ -1383,13 +1410,14 @@ def phase_scan_fwd(dev, rate: float) -> dict:
             if shape == (32, 4, 4096, 192) and dt == torch.bfloat16:
                 result["max_abs_err"] = err
             del y, want
+    log_fwd_build(flat=False)
     # the 27 calls of one bf16 eval forward
     ms = plain_ms = n_bytes = flops = exps = 0.0
     for shape, count in SCAN_CALLS:
         args = _scan_args(dev, shape, 41, torch.bfloat16)
         with torch.no_grad():
             t = cuda_ms(lambda: scan.cross_selective_scan(*args), iters=5, warmup=1)
-            tp = cuda_ms(lambda: scan.cross_selective_scan_plain(*args), iters=2, warmup=1)
+            tp = cuda_ms(lambda: scan.cross_selective_scan_plain(*args), iters=1, warmup=0)
         B, K, L, Dk = shape
         elems = B * K * L * Dk
         log(f"  {shape} x{count}: kernel {t:.4f} ms, plain {tp:.4f} ms")
@@ -1405,25 +1433,6 @@ def phase_scan_fwd(dev, rate: float) -> dict:
     return result
 
 
-def _plain_chunk_states(args, chunk):
-    """The scan's state before every `chunk` steps, (B, K, L/chunk, 16,
-    Dk), by a plain fp32 loop over L."""
-    from smow_net_tpu_torch.ops import scan
-
-    xs, dts, A, Bs, Cs, Ds, bias = args
-    B, K, L, Dk = xs.shape
-    dt = scan.softplus(dts.float() + bias.reshape(1, K, 1, Dk))
-    A3 = A.reshape(K, Dk, 16)
-    h = torch.zeros(B, K, Dk, 16, device=xs.device)
-    out = []
-    for l in range(L):
-        if l % chunk == 0:
-            out.append(h)
-        h = (torch.exp(dt[:, :, l, :, None] * A3) * h
-             + (dt[:, :, l] * xs[:, :, l].float())[..., None] * Bs[:, :, l, None, :].float())
-    return torch.stack(out, dim=2).transpose(-1, -2)
-
-
 def phase_scan_bwd(dev, rate: float) -> dict:
     from smow_net_tpu_torch.ops import scan
 
@@ -1432,9 +1441,10 @@ def phase_scan_bwd(dev, rate: float) -> dict:
     names = ("xs", "dts", "A", "Bs", "Cs", "Ds", "dt_bias")
     results = {"selective_scan_ckpt": {}, "selective_scan_bwd": {}}
     args = _scan_args(dev, (32, 4, 1024, 384), 42)
-    hck = scan._scan_ckpt(scan._Args(*args))
-    err_ck = check("I-ckpt (32, 4, 1024, 384) chunk-start states",
-                   hck.reshape(32, 4, 64, 16, 384), _plain_chunk_states(args, 16), 0.0, 1e-5)
+    a = scan._Args(*args)
+    err_ck = check("I-ckpt (32, 4, 1024, 384) chunk-start states", scan._scan_ckpt(a),
+                   scan.scan_ckpt_plain(a), 0.0, 1e-5)
+    del a
     results["selective_scan_ckpt"]["max_abs_err"] = err_ck
     for shape in ((32, 4, 1024, 384), (16, 4, 8192, 256)):
         args = [a.requires_grad_() for a in _scan_args(dev, shape, 43)]
@@ -1480,11 +1490,11 @@ def phase_scan_bwd(dev, rate: float) -> dict:
         t_bw = cuda_ms(lambda: scan._scan_bwd(a, gy, hck), iters=5, warmup=1)
         t_bk = launch_ms(lambda: scan._scan_bwd(a, gy, hck), "selective_scan_bwd")
         with torch.no_grad():
-            t_fwd = cuda_ms(lambda: scan.cross_selective_scan_plain(*args), iters=2, warmup=1)
+            t_fwd = cuda_ms(lambda: scan.cross_selective_scan_plain(*args), iters=1, warmup=0)
         ref = [x.detach().requires_grad_() for x in args]
-        t_graph = cuda_ms(lambda: scan.cross_selective_scan_plain(*ref), iters=2, warmup=1)
+        t_graph = cuda_ms(lambda: scan.cross_selective_scan_plain(*ref), iters=1, warmup=0)
         t_both = cuda_ms(lambda: torch.autograd.grad(scan.cross_selective_scan_plain(*ref), ref,
-                                                     gy), iters=2, warmup=1)
+                                                     gy), iters=1, warmup=0)
         grads = scan._scan_bwd(a, gy, hck)
         B, K, L, Dk = shape
         log(f"  {shape} x{count}: I-ckpt {t_ck:.4f} ms, I-bwd {t_bw:.4f} ms (kernel alone "
@@ -1572,6 +1582,7 @@ def phase_flat_scan(dev, rate: float) -> dict:
         "selective_scan_plain at CD-Mamba's shapes (fp32: y, du, ddelta, dB, dC to 1e-5 of each "
         "largest element, dA, dD, dbias, summed over the batch and L, to 1e-4; bf16: one bf16 "
         "rounding of the plain version in fp32 on the same inputs)")
+    log_fwd_build(flat=True)
     results = {n: {} for n in FLAT_KERNELS}
     cases = (((32, 65536, 2, 32), (torch.float32, torch.bfloat16)),
              ((32, 65536, 1, 32), (torch.float32,)), ((32, 16384, 2, 64), (torch.float32,)),
@@ -1598,17 +1609,13 @@ def phase_flat_scan(dev, rate: float) -> dict:
                     check(f"{label} d{n}", g, w, 0.0,
                           (1e-5 if n in ("u", "delta", "B", "C") else 1e-4) if fp32 else BF16_REL)
                 del args, got, want, y, want_y, ref
-        # H-ckpt's chunk-start states on the flat layout against a plain
-        # step-by-step loop (over the same values regrouped), fp32
+        # H-ckpt's chunk-start states on the flat layout against the plain
+        # I-ckpt, fp32
         B, L, G, Cg = 32, 1024, 2, 256
-        args = _flat_args(dev, B, L, G, Cg, 53)
-        hck = scan._scan_ckpt(scan._Args(*args, flat=True))
-        grouped = [args[0].reshape(B, L, G, Cg).transpose(1, 2), args[1].reshape(
-            B, L, G, Cg).transpose(1, 2), args[2], args[3].transpose(1, 2), args[4].transpose(1, 2),
-            args[5], args[6]]
-        check(f"H-ckpt ({B * G} rows, {L}, {Cg}) chunk-start states",
-              hck.reshape(B, G, L // 16, 16, Cg), _plain_chunk_states(grouped, 16), 0.0, 1e-5)
-        del args, hck, grouped
+        a = scan._Args(*_flat_args(dev, B, L, G, Cg, 53), flat=True)
+        check(f"H-ckpt ({B * G} rows, {L}, {Cg}) chunk-start states", scan._scan_ckpt(a),
+              scan.scan_ckpt_plain(a), 0.0, 1e-5)
+        del a
     # the 33 calls of one bf16 forward, and of one train step's backward, on
     # the shipped route (the main path's: each call's seg_count segments,
     # seeded) and sequential
@@ -1680,26 +1687,6 @@ def phase_flat_scan(dev, rate: float) -> dict:
     return results
 
 
-def _plain_seg_states(a, S: int, h0) -> torch.Tensor:
-    """The plain fp32 state before every CKPT_CHUNK steps of each of the
-    rows*S segment rows from h0 (zeros when None), in I-ckpt's layout
-    (rows*S, ceil(L / S / 16), N, Cg)."""
-    from smow_net_tpu_torch.ops import scan
-
-    A, _, bias = a.seg_params(S)
-    u, dt, Bm = a.seg(a.u, S), a.seg(a.dt, S), a.seg(a.Bm, S)
-    h = (torch.zeros(a.B, a.G * S, a.Cg, 16, device=a.u.device) if h0 is None
-         else a.to_rows(h0, S))
-    out = []
-    with torch.no_grad():
-        for l0 in range(0, a.L // S, scan.CKPT_CHUNK):
-            out.append(h)
-            part = slice(l0, l0 + scan.CKPT_CHUNK)
-            _, h = scan._scan_chunk(h, u[:, :, part], dt[:, :, part], Bm[:, :, part], None, A,
-                                    None, bias, True)
-    return torch.stack(out, 2).transpose(-1, -2).reshape(a.rows * S, len(out), 16, a.Cg)
-
-
 def _shipped_route_errors(dev, B, L, G, Cg, dtype) -> dict:
     """One CD-Mamba scan shape on the shipped route (S = seg_count): the
     carry and adjcarry (where S > 1), then I-fwd, I-ckpt and I-bwd seeded as
@@ -1740,7 +1727,7 @@ def _shipped_route_errors(dev, B, L, G, Cg, dtype) -> dict:
         f"H-fwd {label} y (seeded)", y, scan.scan_fwd_plain(a, S, h0), 0.0,
         1e-5 if dtype == torch.float32 else BF16_REL)
     errs["selective_scan_ckpt_flat"] = check(f"H-ckpt {label} states (seeded)", hck,
-                                             _plain_seg_states(a, S, h0), 0.0, 1e-5)
+                                             scan.scan_ckpt_plain(a, S, h0), 0.0, 1e-5)
     del y, hck
     want = scan.scan_bwd_plain(a, gy, S, h0, g0, a0)
     errs["selective_scan_bwd_flat"] = max(

@@ -46,18 +46,12 @@
 // H100 (`selective_scan_bwd_occupancy`, the CUDA occupancy calculator): 4
 // blocks, 16 warps per SM, in all four. chip_smoke.py's phase 14 logs both.
 
-#include <cstdint>
-
 #include "scan_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kLanesPerChannel = 4;
-constexpr int kStates = kN / kLanesPerChannel;               // per lane
-constexpr int kWarpChannels = 32 / kLanesPerChannel;         // 8
-constexpr int kBlockChannels = kWarps * kWarpChannels;       // 32: one dB/dC partial each
+// a block (scan_common.cuh's 4 warps over kBlockChannels = 32 channels)
+// writes one dB/dC partial
 constexpr int kMinBlocks = 4;                                // 128 registers a thread at most
 
 // One stage of the ring: a chunk's tiles in the inputs' dtype.
@@ -86,70 +80,8 @@ struct BwdSmem {
   __device__ __forceinline__ float* slot(int t, int c) { return h + t * kSlot + c * kN; }
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most one group of copies (the newest) is in flight.
-__device__ __forceinline__ void cp_async_wait_all_but_newest() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-// Copy n_t steps of a (kChunk x W) tile, row t at src + t * stride, into
-// dst: 16-byte cp.async copies where `vec` and the vector lies within the
-// n_w valid columns, element loads elsewhere; zeros past n_t and n_w. The
-// block's threads share the tile's 16-byte vectors.
-template <typename T, int W>
-__device__ __forceinline__ void stage_tile(T (*dst)[W], const T* __restrict__ src, int stride,
-                                           int n_t, int n_w, bool vec) {
-  constexpr int kV = 16 / sizeof(T);
-  constexpr int kRowVecs = W / kV;
-  for (int i = threadIdx.x; i < kChunk * kRowVecs; i += kThreads) {
-    const int t = i / kRowVecs, w = i % kRowVecs * kV;
-    const T* s = src + (size_t)t * stride + w;
-    if (vec && t < n_t && w + kV <= n_w) {
-      cp_async16(&dst[t][w], s);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kV; ++e)
-        dst[t][w + e] = t < n_t && w + e < n_w ? s[e] : smow::from_float<T>(0.f);
-    }
-  }
-}
-
-// Four consecutive values of a shared-memory row as fp32 (16-byte aligned
-// in fp32, 8-byte in bf16).
-__device__ __forceinline__ void load4(const float* p, float (&v)[kStates]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[kStates]) {
-  const uint2 x = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
-  v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
-}
-
 __device__ __forceinline__ void store4(float* p, const float (&v)[kStates]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// 2^x on the multi-function unit, subnormal results flushed to zero (the
-// decays exp(dt A) <= 1 lose nothing that the sums keep).
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Sum over a channel's 4 lanes.

@@ -55,6 +55,7 @@ _SIGNATURES = {
     "selective_scan_fwd": [_P] * 9 + [_I] * 7 + [_P],
     "selective_scan_ckpt": [_P] * 7 + [_I] * 7 + [_P],
     "selective_scan_carry": [_P] * 8 + [_I] * 7 + [_P],
+    "selective_scan_fwd_occupancy": [_I, _I, _I, _P, _P],
     "selective_scan_bwd": [_P] * 15 + [_I] * 7 + [_P],
     "selective_scan_bwd_occupancy": [_I, _I, _P, _P],
     "selective_scan_adjcarry": [_P] * 6 + [_I] * 7 + [_P],

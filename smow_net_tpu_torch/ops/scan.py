@@ -66,19 +66,26 @@ from . import _kernels
 __all__ = ["selective_scan", "selective_scan_plain", "selective_scan_step",
            "cross_selective_scan", "cross_selective_scan_plain", "softplus", "seg_count",
            "fwd_segmented", "bwd_segmented", "scan_carry_plain", "scan_adjcarry_plain",
-           "scan_states", "scan_states_plain", "bwd_partials", "bwd_occupancy"]
+           "scan_ckpt_plain", "scan_states", "scan_states_plain", "bwd_partials",
+           "fwd_occupancy", "bwd_occupancy"]
 
 N_STATE = 16        # d_state built into the kernels (kN in csrc/selective_scan.cu)
 CKPT_CHUNK = 16     # I-ckpt's checkpoint interval (kChunk)
-BLOCK_CHANNELS = 16     # channels per block of the forward sweeps (kChannels)
+# seg_count's unit of work: 16 channels of one segment row. The forward and
+# reverse sweeps run blocks of 32 channels, 4 warps each (kBlockChannels in
+# csrc/scan_common.cuh), so where Cg is a multiple of 32 a unit is 2 of
+# their warps; the adjoint carry's one-warp blocks hold 16 channels.
+BLOCK_CHANNELS = 16
 BWD_BLOCK_CHANNELS = 32     # channels per I-bwd block: one dB/dC partial each (kBlockChannels)
 _PLAIN_CHUNK = 256
 
 # The segmented route of the flat contract on the card (`seg_count`): rows of
-# at least SEG_MIN_L steps are cut in two until the rows' kernel blocks
-# (rows x S x ceil(Cg / 16), one warp each) reach SEG_TARGET_BLOCKS or a
-# segment would fall below SEG_MIN_K steps. Set from chip_smoke.py's A/B of
-# the sequential and the segmented scan at CD-Mamba's shapes on an H100.
+# at least SEG_MIN_L steps are cut in two until the rows' units (rows x S x
+# ceil(Cg / BLOCK_CHANNELS)) reach SEG_TARGET_BLOCKS or a segment would fall
+# below SEG_MIN_K steps. Set from chip_smoke.py's A/B of the sequential and
+# the segmented scan at CD-Mamba's shapes on an H100 (phase 20); with the
+# 4-warp forward sweep no other S was faster by more than the run's spread
+# at the shapes one target can tell apart (PERF.md).
 SEG_MIN_L = 4096
 SEG_TARGET_BLOCKS = 4096
 SEG_MIN_K = 1024
@@ -381,18 +388,30 @@ def _scan_bwd(a: _Args, gy: torch.Tensor, hck: torch.Tensor, S: int = 1, g0=None
     return dus, ddt, dBp.sum(0), dCp.sum(0), dA
 
 
-def bwd_occupancy(flat: bool, bf16: bool) -> tuple:
-    """Kernel I-bwd's resident warps per SM on the current card
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and its shared memory
-    per block in bytes, for the layout and dtype."""
+def _occupancy(entry: str, *args) -> tuple:
     warps, smem = ctypes.c_int(0), ctypes.c_int(0)
     lib = _kernels.library()
-    rc = lib.selective_scan_bwd_occupancy(int(flat), int(bf16), ctypes.byref(warps),
-                                          ctypes.byref(smem))
+    rc = getattr(lib, entry)(*args, ctypes.byref(warps), ctypes.byref(smem))
     if rc != 0:
-        raise RuntimeError(f"selective_scan_bwd_occupancy: CUDA error {rc} "
-                           f"({lib.smow_cuda_error_string(rc).decode()})")
+        raise RuntimeError(f"{entry}: CUDA error {rc} ({lib.smow_cuda_error_string(rc).decode()})")
     return warps.value, smem.value
+
+
+FWD_MODES = ("fwd", "ckpt", "carry")    # scan_fwd_kernel's modes (kModeFwd, kModeCkpt, kModeCarry)
+
+
+def fwd_occupancy(mode: str, flat: bool, bf16: bool) -> tuple:
+    """The forward sweep's (I-fwd, I-ckpt or the carry: `mode` of FWD_MODES)
+    resident warps per SM on the current card
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and its shared memory
+    per block in bytes, for the layout and dtype."""
+    return _occupancy("selective_scan_fwd_occupancy", FWD_MODES.index(mode), int(flat), int(bf16))
+
+
+def bwd_occupancy(flat: bool, bf16: bool) -> tuple:
+    """Kernel I-bwd's resident warps per SM on the current card and its
+    shared memory per block in bytes, for the layout and dtype."""
+    return _occupancy("selective_scan_bwd_occupancy", int(flat), int(bf16))
 
 
 def scan_carry(a: _Args, S: int):
@@ -426,6 +445,24 @@ def scan_fwd_plain(a: _Args, S: int = 1, h0=None) -> torch.Tensor:
     y, _ = _scan_plain(a.seg(a.u, S), a.seg(a.dt, S), a.seg(a.Bm, S), a.seg(a.Cm, S), A, D,
                        bias, True, None if h0 is None else a.to_rows(h0, S))
     return a.unseg(y, a.u).to(a.u.dtype)
+
+
+def scan_ckpt_plain(a: _Args, S: int = 1, h0=None) -> torch.Tensor:
+    """Plain I-ckpt over segment rows: the fp32 state before every
+    CKPT_CHUNK steps of each of the rows*S segment rows from h0 (rows*S, N,
+    Cg) or zeros, in the kernel's layout (rows*S, ceil(L / S / 16), N, Cg)."""
+    A, _, bias = a.seg_params(S)
+    u, dt, Bm = a.seg(a.u, S), a.seg(a.dt, S), a.seg(a.Bm, S)
+    h = (torch.zeros(a.B, a.G * S, a.Cg, N_STATE, device=a.u.device) if h0 is None
+         else a.to_rows(h0, S))
+    out = []
+    with torch.no_grad():
+        for l0 in range(0, a.L // S, CKPT_CHUNK):
+            out.append(h)
+            part = slice(l0, l0 + CKPT_CHUNK)
+            _, h = _scan_chunk(h, u[:, :, part], dt[:, :, part], Bm[:, :, part], None, A, None,
+                               bias, True)
+    return torch.stack(out, 2).transpose(-1, -2).reshape(a.rows * S, len(out), N_STATE, a.Cg)
 
 
 def scan_carry_plain(a: _Args, S: int):

@@ -2,7 +2,8 @@
 in every padding mode and align_corners flag, B's and A-bwd's tile scatter
 on grids that take its sorted path and its direct one, F and F-bwd, the
 layer at D = 128 and 64; the selective scan's I-fwd, I-ckpt and I-bwd, over the
-grouped layout (I) and the flat one (H), seeded, at any number of rows;
+grouped layout (I) and the flat one (H), seeded, at any number of rows, the
+forward sweep on misaligned rows;
 H-seg's carry and adjoint carry; the general scan's J; G and G-bwd, the
 layer's attention sublayer, at D = 128 and 512) against their plain
 versions, on the card. Marked
@@ -589,7 +590,7 @@ def _scan_inputs(dev, shape, seed):
             f(K * Dk, scale=0.5, off=-3.0)]
 
 
-# Dk = 40 leaves an idle tail of the 16-channel blocks; L = 100 a ragged
+# Dk = 40 leaves an idle tail of the 32-channel blocks; L = 100 a ragged
 # last 16-step chunk
 @pytest.mark.parametrize("shape", [(2, 4, 256, 64), (1, 4, 100, 40)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -679,10 +680,10 @@ FLAT = ("selective_scan_fwd_flat", "selective_scan_ckpt_flat", "selective_scan_b
 SEG = ("selective_scan_carry", "selective_scan_adjcarry")
 
 
-# Cg = 40 and 8 leave an idle tail of the 16-channel blocks of the forward
-# sweeps and of I-bwd's 32-channel blocks; L = 100 a ragged last 16-step
-# chunk; (16, 16384, 2, 64) is one of CD-Mamba's shapes, which the shipped
-# route (`seg_count`) cuts into 16 segments per row
+# Cg = 40 and 8 leave an idle tail of the sweeps' 32-channel blocks; L =
+# 100 a ragged last 16-step chunk; (16, 16384, 2, 64) is one of CD-Mamba's
+# shapes, which the shipped route (`seg_count`) cuts into 16 segments per
+# row
 @pytest.mark.parametrize("B,L,G,Cg", [(2, 256, 2, 32), (2, 100, 1, 40), (2, 100, 2, 8),
                                       (16, 16384, 2, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -769,6 +770,102 @@ def test_seeded_sweeps_match_plain(dev, flat, dtype, Cg):
            1e-5 if dtype == torch.float32 else BF16_REL)
     for got, want in zip(sweeps, scan.scan_bwd_plain(a, gy, 4, h0, g0, a0)):
         _close(got, want, 1e-6, 1e-4)
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose first element lies one element past a
+    16-byte boundary: the kernels must take it by element loads."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _fwd_sweeps_match_plain(a, ref, S, h0):
+    """I-fwd (y), I-ckpt (the chunk-start states) and the carry (each
+    segment row's last state and dt sum, from zero) of `scan_fwd_kernel` on
+    a's S segment rows, seeded with h0 where the wrapper takes it, each one
+    launch, against their plain versions on ref (a's values in fp32): y to
+    1e-5 of its largest element in fp32 or one bf16 rounding, the fp32
+    states and sums to 1e-5."""
+    labels = (a.label("selective_scan_fwd"), a.label("selective_scan_ckpt"),
+              "selective_scan_carry")
+    before = {n: _kernels.launches[n] for n in labels}
+    y = scan._scan_fwd(a, S, h0)
+    hck = scan._scan_ckpt(a, S, h0)
+    hend, csum = scan.scan_carry(a, S)
+    torch.cuda.synchronize()
+    assert all(_kernels.launches[n] == c + 1 for n, c in before.items())
+    assert y.dtype == a.u.dtype and y.shape == a.u.shape
+    _close(y, scan.scan_fwd_plain(ref, S, h0), 1e-6,
+           1e-5 if a.u.dtype == torch.float32 else BF16_REL)
+    _close(hck, scan.scan_ckpt_plain(ref, S, h0), 1e-6, 1e-5)
+    hend_p, csum_p = scan.scan_carry_plain(ref, S)
+    _close(hend, hend_p, 1e-6, 1e-5)
+    _close(csum, csum_p, 1e-6, 1e-5)
+
+
+def _as_fp32(a):
+    """`scan._Args` of a's values in fp32 (the plain versions' operands)."""
+    A = a.A.transpose(1, 2).reshape(-1, 16)
+    return scan._Args(a.u.float(), a.dt.float(), A, a.Bm.float(), a.Cm.float(), a.D, a.bias,
+                      flat=a.flat)
+
+
+# L = 1 and 15: one ragged chunk; 100: a ragged last chunk (25-step
+# segments); Cg = 8, 40 and 200: an idle tail of a 32-channel block
+@pytest.mark.parametrize("L,Cg", [(L, Cg) for L in (1, 15, 100, 4096) for Cg in (8, 40, 200)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("flat", [True, False], ids=["flat", "grouped"])
+def test_fwd_sweep_modes_match_plain(dev, flat, dtype, L, Cg):
+    """The forward sweep's three modes on 2 x 2 rows of L steps, 4 segments
+    a row where L allows (else 1), seeded with a state per segment row."""
+    a = _seeded_args(dev, flat, dtype, Cg, L, 50)
+    S = 4 if L % 4 == 0 else 1
+    h0 = torch.randn(a.rows * S, 16, Cg, device=dev, generator=torch.Generator(dev).manual_seed(51))
+    _fwd_sweeps_match_plain(a, _as_fp32(a), S, h0)
+
+
+@pytest.mark.parametrize("case", ["cg20", "offset"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_fwd_sweep_on_misaligned_rows_matches_plain(dev, case, dtype):
+    """The flat layout where the 16-byte vectors do not line up: Cg = 20
+    (in bf16 a group's rows start 40 bytes apart, and a row is no whole
+    number of vectors), or u, delta, B and C one element past a 16-byte
+    boundary; 2 segments of 150 steps a row, seeded."""
+    Cg = 20 if case == "cg20" else 40
+    args = _flat_inputs(dev, 2, 300, 2, Cg, 52, dtype)
+    if case == "offset":
+        args = [_misaligned(t) if i in (0, 1, 3, 4) else t for i, t in enumerate(args)]
+        assert args[0].data_ptr() % 16 != 0
+    a = scan._Args(*args, flat=True)
+    h0 = torch.randn(a.rows * 2, 16, Cg, device=dev, generator=torch.Generator(dev).manual_seed(53))
+    _fwd_sweeps_match_plain(a, _as_fp32(a), 2, h0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("flat", [True, False], ids=["flat", "grouped"])
+def test_fwd_sweep_is_deterministic(dev, flat, dtype):
+    """I-fwd's y and I-ckpt's states bitwise equal in two runs on the same
+    seeded inputs (Cg = 72, 4 segment rows of 100 steps)."""
+    a = _seeded_args(dev, flat, dtype, 72, 400, 54)
+    h0 = torch.randn(a.rows * 4, 16, 72, device=dev, generator=torch.Generator(dev).manual_seed(55))
+    first = scan._scan_fwd(a, 4, h0), scan._scan_ckpt(a, 4, h0)
+    second = scan._scan_fwd(a, 4, h0), scan._scan_ckpt(a, 4, h0)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_fwd_sweep_holds_32_warps_per_sm(dev):
+    """The forward sweep's design residency: in every mode, layout and
+    dtype, 8 blocks of 4 warps per SM (at most 64 registers a thread by its
+    launch bounds) and under 48 KB of static shared memory a block."""
+    for mode in scan.FWD_MODES:
+        for flat in (False, True):
+            for bf16 in (False, True):
+                warps, smem = scan.fwd_occupancy(mode, flat, bf16)
+                assert warps >= 32 and 0 < smem < 48 * 1024, (mode, flat, bf16, warps, smem)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])

@@ -222,16 +222,22 @@ def test_carries_over_several_plain_chunks():
 
 def test_seg_count():
     """A power of two dividing L; 1 below SEG_MIN_L; segments no shorter
-    than SEG_MIN_K; the rows' blocks no more than SEG_TARGET_BLOCKS."""
-    for rows, L, Cg in ((64, 65536, 32), (32, 65536, 32), (64, 16384, 64), (64, 4096, 128),
-                        (64, 1024, 256), (3, 40000, 20)):
+    than SEG_MIN_K; the rows' 16-channel units (BLOCK_CHANNELS: two warps
+    of the sweeps' 4-warp, 32-channel blocks) no more than
+    SEG_TARGET_BLOCKS; and the S that CD-Mamba's scan shapes take (the
+    shipped route that the card's A/B measures)."""
+    shipped = {(64, 65536, 32): 32, (32, 65536, 32): 64, (64, 16384, 64): 16,
+               (32, 16384, 64): 16, (64, 4096, 128): 4, (32, 4096, 128): 4,
+               (64, 1024, 256): 1, (3, 40000, 20): 32}
+    for (rows, L, Cg), want in shipped.items():
         S = scan.seg_count(rows, L, Cg)
+        assert S == want
         assert S >= 1 and S & (S - 1) == 0 and L % S == 0
         if L < scan.SEG_MIN_L:
             assert S == 1
         if S > 1:
             assert L // S >= scan.SEG_MIN_K
-            assert rows * S * -(-Cg // 16) <= scan.SEG_TARGET_BLOCKS
+            assert rows * S * -(-Cg // scan.BLOCK_CHANNELS) <= scan.SEG_TARGET_BLOCKS
 
 
 def test_selective_scan_step_matches_jax_and_full_scan():
@@ -253,6 +259,44 @@ def test_selective_scan_step_matches_jax_and_full_scan():
         assert _rel(y.numpy(), yj) <= 1e-5 and _rel(h.numpy(), hj) <= 1e-5
         ys.append(y)
     assert _rel(torch.stack(ys, 1).numpy(), full.numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("S", [1, 4])
+@pytest.mark.parametrize("flat", [True, False], ids=["flat", "grouped"])
+def test_scan_ckpt_plain_matches_jax_steps(flat, S):
+    """The plain I-ckpt (`scan_ckpt_plain`, which the card holds kernels
+    I-ckpt and H-ckpt against) against JAX's `selective_scan_step` iterated
+    step by step: the state before every 16th step of each of the S
+    segments of 100 steps, each segment from its own seeded state h0;
+    Cg = 40, G = 2, in the flat and the grouped layout; 1e-5."""
+    B, L, G, Cg = 2, 100, 2, 40
+    inp = _inputs(60, B=B, L=L, G=G, Cg=Cg)
+    K = L // S
+    h0 = np.random.default_rng(61).normal(size=(B * G * S, N, Cg)).astype(np.float32)
+    step = jax.jit(lambda h, u, d, Bv, Cv: jscan.selective_scan_step(
+        h, u, d, jnp.asarray(inp["A"]), Bv, Cv, jnp.asarray(inp["D"]), jnp.asarray(inp["bias"]),
+        delta_softplus=True)[1])
+    want = []
+    for s in range(S):            # the state (B, G*Cg, N) of segment s from its own h0
+        h = jnp.asarray(h0.reshape(B, G, S, N, Cg)[:, :, s].transpose(0, 1, 3, 2)
+                        .reshape(B, G * Cg, N))
+        states = []
+        for t in range(s * K, (s + 1) * K):
+            if (t - s * K) % 16 == 0:
+                states.append(np.asarray(h))
+            h = step(h, inp["u"][:, t], inp["delta"][:, t], inp["Bm"][:, t], inp["Cm"][:, t])
+        # (B, chunks, G*Cg, N) -> (B, G, chunks, N, Cg)
+        want.append(np.stack(states, 1).reshape(B, -1, G, Cg, N).transpose(0, 2, 1, 4, 3))
+    want = np.stack(want, 2).reshape(B * G * S, -1, N, Cg)
+    args = _torch(inp)
+    if not flat:                  # the same values in the grouped layout
+        args = [args[0].reshape(B, L, G, Cg).transpose(1, 2),
+                args[1].reshape(B, L, G, Cg).transpose(1, 2), args[2],
+                args[3].transpose(1, 2), args[4].transpose(1, 2), args[5], args[6]]
+    a = scan._Args(*args, flat=flat)
+    got = scan.scan_ckpt_plain(a, S, torch.from_numpy(h0))
+    assert got.shape == want.shape == (B * G * S, -(-K // 16), N, Cg)
+    assert _rel(got.numpy(), want) <= 1e-5
 
 
 @pytest.mark.parametrize("C,K", [(8, 4), (12, 3)])

@@ -2,26 +2,29 @@
 
     python tools/torch_chip_phases.py 3b 3c          # from a checkout's root
     python tools/torch_chip_phases.py --tree PATH 3b # the checkout at PATH
-    python tools/torch_chip_phases.py --tree PATH bwd
+    python tools/torch_chip_phases.py --tree PATH fwd bwd
 
 Builds the kernels of the checkout it runs from (or of --tree), sets the
 fp32 comparisons' flags as chip_smoke.py does (TF32 off) and runs the named
 phases: 3 (D), 3b (E, C, A-bwd), 3c (A-fwd, B), 3d (the unfused chain), 3e
-(D-bwd), 3f (the warp modes and NaN grids), 3g (the OFW route), 14 (I-ckpt
-and I-bwd), 19 (kernel H), 20 (H on the shipped segmented route, and its
-A/B). Each phase holds its kernels against their plain versions and logs
-their times, as in the whole script; a phase that returns the JSON line's
-numbers prints them.
+(D-bwd), 3f (the warp modes and NaN grids), 3g (the OFW route), 13 (I-fwd),
+14 (I-ckpt and I-bwd), 19 (kernel H), 20 (H on the shipped segmented
+route, and its A/B). Each phase holds its kernels against their plain
+versions and logs their times, as in the whole script; a phase that
+returns the JSON line's numbers prints them.
 
-`bwd` times only the selective scan's reverse sweep, bf16, on inputs made
-on the card from a seed (the phases' numpy-seeded inputs take minutes to
-make at these sizes): I-bwd at each of the 27 calls of one ChangeMamba
-train step (chip_smoke.SCAN_CALLS) and H-bwd at each of the 33 of one
-CD-Mamba train step (chip_smoke.CDM_CALLS) on the shipped segmented route,
-seeded, each as the wrapper (`scan._scan_bwd`: the dy cast, the kernel and
-the sum of the dB and dC partials; CUDA events over 5 calls) and as the
-kernel alone (`launch_ms`: CUDA events around each launch, as phases 14
-and 19 time it).
+`fwd` and `bwd` time the selective scan's sweeps alone, bf16, on inputs
+made on the card from a seed (the phases' numpy-seeded inputs take minutes
+to make at these sizes), summed over the calls of one ChangeMamba forward
+or train step (chip_smoke.SCAN_CALLS, 27 calls: I-fwd, I-ckpt, I-bwd) and
+of one CD-Mamba forward or train step (chip_smoke.CDM_CALLS, 33 calls on
+the shipped segmented route, seeded: H-fwd, H-ckpt, H-bwd, and the carry,
+once per segmented call of a forward). `fwd` takes I-fwd, I-ckpt, H-fwd,
+H-ckpt and the carry, `bwd` I-bwd and H-bwd. Each is timed as the wrapper
+(`scan._scan_fwd`, `_scan_ckpt`, `scan_carry`, `_scan_bwd`: its
+allocations, casts and the sum of I-bwd's dB and dC partials; CUDA events
+over 5 calls) and as the kernel alone (`launch_ms`: CUDA events around
+each launch, as phases 14 and 19 time it).
 It takes its timers from the chip_smoke.py beside this tool, whatever
 --tree is, and only `ops.scan` from the tree, so one run per tree compares
 any two trees since the kernels' port.
@@ -38,7 +41,9 @@ import subprocess
 import sys
 import time
 
-PHASES = ["3", "3b", "3c", "3d", "3e", "3f", "3g", "14", "19", "20", "bwd"]
+PHASES = ["3", "3b", "3c", "3d", "3e", "3f", "3g", "13", "14", "19", "20", "fwd", "bwd"]
+# the sweeps each timing mode takes
+SWEEPS = {"fwd": ("I-fwd", "I-ckpt", "H-fwd", "H-ckpt", "carry"), "bwd": ("I-bwd", "H-bwd")}
 
 
 def own_chip_smoke():
@@ -52,15 +57,17 @@ def own_chip_smoke():
     return mod
 
 
-def bwd_times(dev) -> dict:
-    """I-bwd's and H-bwd's times summed over one train step's calls, bf16:
-    the wrapper and the kernel alone (see the module's docstring)."""
+def sweep_times(dev, mode: str) -> dict:
+    """The sweeps of SWEEPS[mode], bf16, each summed over one forward's or
+    train step's calls: the wrapper and the kernel alone (see the module's
+    docstring)."""
     import torch
 
     from smow_net_tpu_torch.ops import scan
 
     cs = own_chip_smoke()
     gen = torch.Generator(dev).manual_seed(90)
+    names = SWEEPS[mode]
 
     def rand(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, device=dev, generator=gen).to(dtype)
@@ -73,37 +80,47 @@ def bwd_times(dev) -> dict:
         lo, hi = torch.log(torch.tensor([1e-3, 0.1]))
         return lo + (hi - lo) * torch.rand(channels, device=dev, generator=gen)
 
-    out = {"I-bwd": 0.0, "I-bwd kernel": 0.0, "H-bwd": 0.0, "H-bwd kernel": 0.0}
+    def timed(label, n, calls):
+        """Time calls[name] = (fn, C entry) for each of this mode's names."""
+        for name in names:
+            if name not in calls:
+                continue
+            fn, entry = calls[name]
+            t = cs.cuda_ms(fn, iters=5, warmup=1)
+            tk = cs.launch_ms(fn, entry, iters=5)
+            print(f"  {name} {label} x{n}: wrapper {t:.4f} ms, kernel {tk:.4f} ms", flush=True)
+            out[name] += n * t
+            out[name + " kernel"] += n * tk
+
+    out = dict.fromkeys([k for n in names for k in (n, n + " kernel")], 0.0)
     for (B, K, L, Dk), n in cs.SCAN_CALLS:
         a = scan._Args(rand(B, K, L, Dk), rand(B, K, L, Dk), decays(K * Dk), rand(B, K, L, 16),
                        rand(B, K, L, 16), 1 + 0.1 * rand(K * Dk, dtype=torch.float32),
                        biases(K * Dk))
-        gy = rand(B, K, L, Dk)
-        hck = scan._scan_ckpt(a)
-        call = lambda: scan._scan_bwd(a, gy, hck)
-        t = cs.cuda_ms(call, iters=5, warmup=1)
-        tk = cs.launch_ms(call, "selective_scan_bwd", iters=5)
-        print(f"  I-bwd {(B, K, L, Dk)} x{n}: wrapper {t:.4f} ms, kernel {tk:.4f} ms", flush=True)
-        out["I-bwd"] += n * t
-        out["I-bwd kernel"] += n * tk
-        del a, gy, hck
+        calls = {"I-fwd": (lambda: scan._scan_fwd(a), "selective_scan_fwd"),
+                 "I-ckpt": (lambda: scan._scan_ckpt(a), "selective_scan_ckpt")}
+        if mode == "bwd":
+            gy, hck = rand(B, K, L, Dk), scan._scan_ckpt(a)
+            calls["I-bwd"] = (lambda: scan._scan_bwd(a, gy, hck), "selective_scan_bwd")
+        timed(str((B, K, L, Dk)), n, calls)
+        del a, calls
     for (B, L, G, Cg), n in cs.CDM_CALLS:
         a = scan._Args(rand(B, L, G * Cg), rand(B, L, G * Cg), decays(G * Cg),
                        rand(B, L, G, 16), rand(B, L, G, 16),
                        1 + 0.1 * rand(G * Cg, dtype=torch.float32), biases(G * Cg), flat=True)
-        gy = rand(B, L, G * Cg)
         S = scan.seg_count(a.rows, L, Cg)
         seeds = [torch.rand(a.rows * S, 16, Cg, device=dev, generator=gen) if S > 1 else None
                  for _ in range(3)]
-        hck = scan._scan_ckpt(a, S, seeds[0])
-        call = lambda: scan._scan_bwd(a, gy, hck, S, *seeds[1:])
-        t = cs.cuda_ms(call, iters=5, warmup=1)
-        tk = cs.launch_ms(call, "selective_scan_bwd", iters=5)
-        print(f"  H-bwd ({B * G} rows, {L}, {Cg}) G={G} x{n} S={S}: wrapper {t:.4f} ms, "
-              f"kernel {tk:.4f} ms", flush=True)
-        out["H-bwd"] += n * t
-        out["H-bwd kernel"] += n * tk
-        del a, gy, hck, seeds
+        calls = {"H-fwd": (lambda: scan._scan_fwd(a, S, seeds[0]), "selective_scan_fwd"),
+                 "H-ckpt": (lambda: scan._scan_ckpt(a, S, seeds[0]), "selective_scan_ckpt")}
+        if S > 1:
+            calls["carry"] = (lambda: scan.scan_carry(a, S), "selective_scan_carry")
+        if mode == "bwd":
+            gy, hck = rand(B, L, G * Cg), scan._scan_ckpt(a, S, seeds[0])
+            calls["H-bwd"] = (lambda: scan._scan_bwd(a, gy, hck, S, *seeds[1:]),
+                              "selective_scan_bwd")
+        timed(f"({B * G} rows, {L}, {Cg}) G={G} S={S}", n, calls)
+        del a, calls, seeds
     return out
 
 
@@ -132,14 +149,18 @@ def main() -> None:
     print(f"kernels of {args.tree} built and loaded in {time.perf_counter() - t0:.1f} s ({card})",
           flush=True)
     if hasattr(cs, "ptxas_lines"):
-        for line in cs.ptxas_lines("scan_bwd_kernel"):
-            print("  ptxas " + line, flush=True)
+        for kernel in ("scan_fwd_kernel", "scan_bwd_kernel"):
+            for line in cs.ptxas_lines(kernel):
+                print("  ptxas " + line, flush=True)
     rate = cs.mufu_per_s()
     phases = {"3": cs.phase_kernel_d, "3b": cs.phase_token_backward, "3c": cs.phase_warps,
               "3d": cs.phase_unfused_chain, "3e": cs.phase_token_bwd,
               "3f": cs.phase_warp_modes, "3g": cs.phase_ofw_route,
-              "14": lambda d: cs.phase_scan_bwd(d, rate), "19": lambda d: cs.phase_flat_scan(d, rate),
-              "20": lambda d: cs.phase_seg_scan(d, rate), "bwd": bwd_times}
+              "13": lambda d: cs.phase_scan_fwd(d, rate),
+              "14": lambda d: cs.phase_scan_bwd(d, rate),
+              "19": lambda d: cs.phase_flat_scan(d, rate),
+              "20": lambda d: cs.phase_seg_scan(d, rate),
+              "fwd": lambda d: sweep_times(d, "fwd"), "bwd": lambda d: sweep_times(d, "bwd")}
     for name in args.phases:
         result = phases[name](dev)
         if isinstance(result, dict):
