@@ -41,7 +41,9 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      (SMOW_Net) and D = 64 (SMOW_Net_LW), and the ragged N = 1000
   4b. kernel F-bwd vs torch.autograd.grad of the plain layer: all 14 input
      gradients at (16, 16384, D) with and without the permutation, fp32
-     and bf16, and the ragged N = 1000, at D = 128 and D = 64
+     and bf16, and the ragged N = 1000, at D = 128 and D = 64; F-bwd's
+     slab bytes per call (bf16: one record per block, written once) and
+     both kernels' ptxas lines
   4c. kernel G (`cross_attn_fwd`, the layer's attention sublayer alone; an
      op path, no model runs it) vs `cross_attn_head1_plain`, fp32 (1e-5 of
      the largest output) and bf16: (16, 16384, D) at D = 128 and 64 with no
@@ -165,7 +167,14 @@ C, F and F-bwd): 1e-5 of the largest output, 1e-4 where a sum runs over
 many rows or the atomics contend (F-bwd's weight gradients, the token
 chain's whole VJP). bf16 kernels compute in fp32 and round once on output,
 so they are held against the plain version run in fp32 on the same bf16
-inputs, to one bf16 rounding (2^-8 relative) of the largest output.
+inputs, to one bf16 rounding (2^-8 relative) of the largest output. The
+bf16 F and F-bwd run the MLP's products (two in F: h, out; five in F-bwd:
+h, dhg, dyn, dw1, dw2) on the tensor cores, bf16 operands with fp32
+accumulation: the weights at their bf16 values (the plain version rounds
+them so), g as given, and each fp32 activation operand (LN2(y1), GELU(h),
+dh; both sides of dw1) split into bf16 hi + lo, which puts a product within
+about 2^-17 of its fp32 value; everything else is fp32 on the CUDA cores,
+and the outputs round once, so the bound is the same.
 
 Times: a warp kernel's device time (D, E, C, A-bwd, A-fwd, B, each 0.02-0.3
 ms) is taken from a CUDA graph of 20 calls of its wrapper, replayed and
@@ -1126,6 +1135,14 @@ def phase_kernel_f_bwd(dev, D: int) -> dict:
                               library_ms=None)
                 log(f"  bf16 time: kernel {result['ms']:.4f} ms, plain backward "
                     f"{result['plain_ms']:.4f} ms, bound {result['bound_ms']:.4f} ms")
+    for dt, how in ((torch.bfloat16, "each block's record written once"),
+                    (torch.float32, "a block's row added into per 64-row tile")):
+        blocks, floats = xattn.layer_bwd_slab(16, 16384, D, dt, dev)
+        log(f"  F-bwd slab per call at (16,16384,{D}) {str(dt)[6:]}: {blocks} blocks x "
+            f"{floats} floats = {blocks * floats * 4} bytes ({how})")
+    for kernel in ("layer_fwd_tc", "layer_bwd_tc"):
+        for line in ptxas_lines(kernel):
+            log(f"  ptxas {line}")
     compare(f"ragged (2,1000,{D})", _layer_args(dev, 2, 1000, D=D, hid=2 * D, seed=5),
             torch.from_numpy(np.random.default_rng(7).normal(
                 size=(2, 1000, D)).astype(np.float32)).to(dev), None, torch.float32)

@@ -50,6 +50,7 @@ _SIGNATURES = {
     "grid_sample_bwd": [_P] * 5 + [_I] * 9 + [_P],
     "xattn_layer_fwd": [_P] * 16 + [_I] * 7 + [ctypes.c_float, _P],
     "xattn_layer_bwd": [_P] * 20 + [_I] * 9 + [ctypes.c_float, _P],
+    "xattn_layer_grid": [_I, _I, _I, _P, _P],
     "cross_attn_fwd": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P],
     "cross_attn_bwd": [_P] * 14 + [_I] * 8 + [ctypes.c_float, _P],
     "selective_scan_fwd": [_P] * 9 + [_I] * 7 + [_P],

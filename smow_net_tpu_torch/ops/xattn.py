@@ -10,15 +10,21 @@ applied as an index gather, never as a matmul.
 `cross_layer_head1` is a torch.autograd.Function on a CUDA tensor, forward
 kernel F (csrc/xattn_layer.cu) and backward kernel F-bwd
 (csrc/xattn_layer_bwd.cu), and `cross_layer_head1_plain` under torch autograd
-on a CPU tensor. `cross_attn_head1`, the layer's attention sublayer alone, is
-routed the same way: kernels G (csrc/cross_attn.cu) and G-bwd
-(csrc/cross_attn_bwd.cu) on CUDA, `cross_attn_head1_plain` on the CPU. Both
-kernels and both plain versions take one softmax shift per (pixel, head), as
-the reference's softmax does, not the Pallas kernels' one per pixel.
+on a CPU tensor. In bf16 both kernels run the MLP's products on the tensor
+cores with each fp32 activation operand split into bf16 hi + lo; F-bwd's
+thread-block clusters keep dw1 and dw2 on chip and write one record per
+block (`layer_bwd_slab`, `layer_grid`). `cross_attn_head1`, the layer's
+attention sublayer alone, is routed the same way: kernels G
+(csrc/cross_attn.cu) and G-bwd (csrc/cross_attn_bwd.cu) on CUDA,
+`cross_attn_head1_plain` on the CPU. Both kernels and both plain versions
+take one softmax shift per (pixel, head), as the reference's softmax does,
+not the Pallas kernels' one per pixel.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -26,7 +32,7 @@ import torch
 from . import _kernels
 
 __all__ = ["cross_attn_head1", "cross_attn_head1_plain", "cross_layer_head1",
-           "cross_layer_head1_plain", "layer_norm32"]
+           "cross_layer_head1_plain", "layer_bwd_slab", "layer_grid", "layer_norm32"]
 
 
 def _perm_index(perm: torch.Tensor) -> torch.Tensor:
@@ -84,11 +90,58 @@ _ARG_NAMES = ("x", "ln1_scale", "ln1_bias", "wq", "k", "v", "w_out", "b_out",
 
 
 def _slab_layout(D, h, hidden):
-    """Kernel F-bwd's per-block partial sums: (argument, shape) in the order
-    of the kOff* offsets of `Slab<D>` in csrc/xattn_layer_bwd.cu."""
+    """Kernel F-bwd's fp32 per-block partial sums: (argument, shape) in the
+    order of the kOff* offsets of `Slab<D>` in csrc/xattn_layer_bwd.cu."""
     return (("w1", (D, hidden)), ("w2", (hidden, D)), ("wq", (D, h)), ("w_out", (h, D)),
             ("ln1_scale", (D,)), ("ln1_bias", (D,)), ("ln2_scale", (D,)),
             ("ln2_bias", (D,)), ("b_out", (D,)), ("b2", (D,)), ("b1", (hidden,)))
+
+
+# hidden units per block of kernel F-bwd's bf16 clusters (tcb::kHS)
+_BWD_SLICE = 64
+
+
+def _record_layout(D, h):
+    """Kernel F-bwd's bf16 record of one block: (argument, shape) in the
+    order of `tcb::Layout<D>`: its slice of dw1 and dw2 and of db1, then its
+    rows' small sums."""
+    return (("w1", (D, _BWD_SLICE)), ("w2", (_BWD_SLICE, D)), ("b1", (_BWD_SLICE,)),
+            ("wq", (D, h)), ("w_out", (h, D)), ("ln1_scale", (D,)), ("ln1_bias", (D,)),
+            ("ln2_scale", (D,)), ("ln2_bias", (D,)), ("b_out", (D,)), ("b2", (D,)))
+
+
+@functools.lru_cache(maxsize=None)
+def _grid(device_index, D, bf16, bwd):
+    """`layer_grid` from the C entry, once per device and kernel."""
+    ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
+    lib = _kernels.library()
+    with torch.cuda.device(device_index):
+        rc = lib.xattn_layer_grid(D, int(bf16), int(bwd), ctypes.byref(ctas), ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"xattn_layer_grid: CUDA error {rc} "
+                           f"({lib.smow_cuda_error_string(rc).decode()})")
+    return ctas.value, smem.value
+
+
+def layer_grid(D, dtype, bwd, device):
+    """Kernel F's (bwd False) or F-bwd's residency on the card for width D
+    and dtype: (blocks in one full wave, shared memory a block in bytes).
+    F-bwd's bf16 blocks come in clusters of 2D / 64."""
+    index = torch.device(device).index or 0
+    return _grid(index, D, dtype == torch.bfloat16, bool(bwd))
+
+
+def layer_bwd_slab(B, N, D, dtype, device):
+    """Kernel F-bwd's slab for one call: (blocks, floats a block). fp32: one
+    block per SM (or per 64-row tile, if fewer), each adding into its row per
+    tile; bf16: one wave of clusters (at most one per 64-row tile), each
+    block writing its record once."""
+    tiles = B * -(-N // 64)
+    ctas, _ = layer_grid(D, dtype, True, device)
+    if dtype != torch.bfloat16:
+        return min(tiles, ctas), sum(math.prod(s) for _, s in _slab_layout(D, 8, 2 * D))
+    per = 2 * D // _BWD_SLICE
+    return min(ctas // per, tiles) * per, sum(math.prod(s) for _, s in _record_layout(D, 8))
 
 
 def _part_layout(D, h):
@@ -101,7 +154,8 @@ def _part_layout(D, h):
 def _kernel_args(args, scale, perm):
     """Check the CUDA arguments of the layer (its 14 inputs: kernels F and
     F-bwd) or of its attention sublayer (the first 8: kernels G and G-bwd)
-    against what the kernels take; returns the fp32 weights by name,
+    against what the kernels take; returns the weights by name (fp32; for
+    the bf16 layer at the plain version's bf16 values, w1 and w2 as bf16),
     kexp/vexp (B, h, M) with the softmax scale folded into kexp, and the
     permutation as source lanes."""
     layer = len(args) == len(_ARG_NAMES)
@@ -129,11 +183,16 @@ def _kernel_args(args, scale, perm):
               "b_out": (D,), "ln2_scale": (D,), "ln2_bias": (D,), "w1": (D, hidden),
               "b1": (hidden,), "w2": (hidden, D), "b2": (D,)}
     weights = args[1:4] + args[6:]
+    # the bf16 layer takes the weights at the plain version's bf16 values,
+    # w1 and w2 as bf16 (tensor-core operands)
+    rounded = ("wq", "w_out", "b_out", "w1", "b1", "w2", "b2")
+    bf16_layer = layer and x.dtype == torch.bfloat16
     w = {}
     for (name, shape), t in zip(list(expect.items())[:len(weights)], weights):
         if tuple(t.shape) != shape or t.device != x.device:
             raise ValueError(f"{op}: {name} must be {shape} on {x.device}")
-        w[name] = t.detach().float().contiguous()
+        t = t.detach().to(torch.bfloat16) if bf16_layer and name in rounded else t.detach()
+        w[name] = (t if bf16_layer and name in ("w1", "w2") else t.float()).contiguous()
     if k.device != x.device or v.device != x.device:
         raise ValueError(f"{op}: k and v must be on {x.device}")
     kexp = (k.detach().float() * scale).transpose(1, 2).contiguous()   # (B, h, M)
@@ -174,23 +233,25 @@ def _kernel_bwd(args, gy, scale, perm, eps):
     """Kernel F-bwd (the layer's 14 inputs) or G-bwd (the sublayer's 8): the
     gradients of the inputs (`_ARG_NAMES`) for the output cotangent gy,
     each in its input's dtype. The kernel leaves one block's row sums per
-    slab row; they are summed here."""
+    slab row (F-bwd's bf16 kernel: one record per block, `_from_records`);
+    they are summed here."""
     x = args[0]
     w, kexp, vexp, src = _kernel_args(args, scale, perm)
     gy = gy.to(x.dtype).contiguous()
     B, N, D = x.shape
     h, M = w["wq"].shape[1], kexp.shape[2]
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if "w1" in w:
         hidden = [w["w1"].shape[1]]
-        layout = _slab_layout(D, h, hidden[0])
-        # F-bwd adds into its slab row per tile: zeroed; one block per SM over
-        # the kernel's 64-row tiles (kTile, csrc/xattn_layer.cuh)
-        blocks, alloc = min(B * -(-N // 64), sms), torch.zeros
+        bf16 = x.dtype == torch.bfloat16
+        layout = _record_layout(D, h) if bf16 else _slab_layout(D, h, hidden[0])
+        blocks, _ = layer_bwd_slab(B, N, D, x.dtype, x.device)
+        # fp32 adds into its slab row per tile: zeroed; bf16 writes its record once
+        alloc = torch.empty if bf16 else torch.zeros
     else:
-        hidden = []
+        hidden, bf16 = [], False
         layout = _part_layout(D, h)
         # G-bwd writes its row once; two blocks per SM over kAttnRows<D> rows
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         rows = 32 if D >= 256 else 64
         blocks, alloc = min(B * -(-N // rows), 2 * sms), torch.empty
     sizes = [math.prod(shape) for _, shape in layout]
@@ -204,12 +265,29 @@ def _kernel_bwd(args, gy, scale, perm, eps):
                   dkexp.data_ptr(), dvexp.data_ptr(), B, N, D, h, M, *hidden, blocks,
                   sum(sizes), int(x.dtype == torch.bfloat16), float(eps),
                   _kernels.stream_handle(x.device))
-    grads = {name: part.reshape(shape) for (name, shape), part in
-             zip(layout, slab.sum(dim=0).split(sizes))}
+    if bf16:
+        grads = _from_records(slab, layout, sizes, D, hidden[0])
+    else:
+        grads = {name: part.reshape(shape) for (name, shape), part in
+                 zip(layout, slab.sum(dim=0).split(sizes))}
     grads["x"] = dx
     grads["k"] = dkexp.transpose(1, 2) * scale
     grads["v"] = dvexp.transpose(1, 2)
     return tuple(grads[name].to(a.dtype) for name, a in zip(_ARG_NAMES, args))
+
+
+def _from_records(slab, layout, sizes, D, hidden):
+    """F-bwd's bf16 records (blocks, floats) summed over clusters, the hidden
+    slices of dw1, dw2 and db1 put side by side, the rows' sums added."""
+    C = hidden // _BWD_SLICE
+    parts = dict(zip((name for name, _ in layout),
+                     slab.view(-1, C, slab.shape[1]).sum(dim=0).split(sizes, dim=1)))
+    grads = {"w1": parts.pop("w1").reshape(C, D, _BWD_SLICE).permute(1, 0, 2).reshape(D, hidden),
+             "w2": parts.pop("w2").reshape(hidden, D),
+             "b1": parts.pop("b1").reshape(hidden)}
+    shapes = dict(layout)
+    grads.update({name: part.sum(dim=0).reshape(shapes[name]) for name, part in parts.items()})
+    return grads
 
 
 class _Head1Kernels(torch.autograd.Function):

@@ -181,13 +181,17 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer, compute_dtype=
 
 def make_eval_step(model: torch.nn.Module):
     """step(batch) -> (cm, loss, pred) on the model's device and dtype under
-    torch.inference_mode(); the loss and metrics take fp32 predictions."""
-    model.eval()
+    torch.inference_mode(); the loss and metrics take fp32 predictions.
+    Each call puts the model in eval mode (a train step in between puts it
+    in train mode), as JAX's eval step applies train=False on every call:
+    BN normalises with its running statistics and leaves them as they are,
+    and DropPath draws no mask."""
     param = next(model.parameters())
     device, dtype = param.device, param.dtype
 
     @torch.inference_mode()
     def step(batch):
+        model.eval()
         x1, x2, gt, valid = _batch_tensors(batch, device, dtype)
         pred = select_pred(model(x1, x2)).float()
         loss = bce_dice_loss(pred, gt, valid)

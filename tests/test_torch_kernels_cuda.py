@@ -14,9 +14,13 @@ skip tests/conftest.py (it configures JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 
 Bounds as chip_smoke.py states them: fp32 kernels differ from the fp32
-plain versions only in summation order; bf16 kernels compute in fp32 and
-round once, so they are held to one bf16 rounding (2^-8 relative) of the
-fp32 plain result on the same inputs."""
+plain versions only in summation order; bf16 kernels compute in fp32 (F's
+and F-bwd's MLP products on the tensor cores with each fp32 activation
+operand split into bf16 hi + lo, to about 2^-17 of the product) and round
+once, so they are held to one bf16 rounding (2^-8 relative) of the fp32
+plain result on the same inputs. F and F-bwd also wrap their persistent
+grids, run bitwise alike twice, spill nothing and hold tensor-core
+instructions."""
 
 import numpy as np
 import pytest
@@ -70,8 +74,9 @@ def test_token_scatter_kernel_matches_plain(dev, C, dtype):
 
 
 def _layer_inputs(dev, rng, D, B=2, N=1000):
-    """The decoder layer's 14 inputs at width D (h = 8, M = 8, hidden 2D);
-    N = 1000 leaves a ragged tail of the kernels' 64-row tiles."""
+    """The decoder layer's 14 inputs at width D (h = 8, M = 8, hidden 2D) and
+    a cotangent; N = 1000 leaves a ragged tail of the kernels' 16- and
+    64-row tiles."""
     h, M, hid = 8, 8, 2 * D
 
     def f(*s, scale=1.0, off=0.0):
@@ -350,6 +355,119 @@ def test_xattn_layer_bwd_kernel_matches_plain(dev, use_perm, dtype):
     for g, w, a in zip(got, want, args):
         assert g.dtype == a.dtype and g.shape == a.shape
         _close(g, w, 1e-5, 1e-4 if dtype == torch.float32 else BF16_REL)
+
+
+_LAYER_NAMES = ("x", "ln1_scale", "ln1_bias", "wq", "k", "v", "w_out", "b_out",
+                "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
+
+
+def _layer_run(args, gy, D):
+    """Kernel F's output and F-bwd's 14 gradients (one launch each)."""
+    args = [a.detach().requires_grad_() for a in args]
+    out = xattn.cross_layer_head1(*args, scale=D ** -0.5)
+    return out, torch.autograd.grad(out, args, gy)
+
+
+@pytest.mark.parametrize("D", [128, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_xattn_layer_kernels_wrap_their_persistent_grid(dev, D, dtype):
+    """F and F-bwd at (4, 16384, D), more tiles than one wave of blocks takes
+    (F's bf16 warps walk 16-row tiles, F-bwd's blocks or clusters 64-row
+    ones), against the plain version in fp32, at the bounds above."""
+    rng = np.random.default_rng(12)
+    args, gy = _layer_inputs(dev, rng, D, B=4, N=16384)
+    args, gy = [a.to(dtype) for a in args], gy.to(dtype)
+    ctas, _ = xattn.layer_grid(D, dtype, True, dev)
+    assert 4 * 16384 // 64 > ctas
+    if dtype == torch.bfloat16:
+        assert 4 * 16384 // 16 > 8 * xattn.layer_grid(D, dtype, False, dev)[0]
+    out, got = _layer_run(args, gy, D)
+    ref = [a.float().requires_grad_() for a in args]
+    want = xattn.cross_layer_head1_plain(*ref, scale=D ** -0.5)
+    rtol = 1e-5 if dtype == torch.float32 else BF16_REL
+    _close(out, want, 1e-4, rtol)
+    rtol = 1e-4 if dtype == torch.float32 else BF16_REL
+    for g, w in zip(got, torch.autograd.grad(want, ref, gy.float())):
+        _close(g, w, 1e-5, rtol)
+
+
+@pytest.mark.parametrize("D", [128, 64])
+def test_xattn_layer_bf16_kernels_are_deterministic(dev, D):
+    """bf16 F's output, and every F-bwd gradient but dk and dv (added across
+    blocks with atomicAdd), bitwise equal in two runs at (4, 16384, D)."""
+    rng = np.random.default_rng(13)
+    args, gy = _layer_inputs(dev, rng, D, B=4, N=16384)
+    args, gy = [a.to(torch.bfloat16) for a in args], gy.to(torch.bfloat16)
+    first, second = _layer_run(args, gy, D), _layer_run(args, gy, D)
+    assert torch.equal(first[0], second[0])
+    for name, a, b in zip(_LAYER_NAMES, first[1], second[1]):
+        if name not in ("k", "v"):
+            assert torch.equal(a, b), name
+
+
+def _layer_ptxas():
+    """ptxas's lines (function, registers, spill bytes) for F's and F-bwd's
+    sources, compiled as the build compiles them."""
+    import subprocess
+    import tempfile
+
+    lines = {}
+    with tempfile.TemporaryDirectory() as work:
+        for src in ("xattn_layer.cu", "xattn_layer_bwd.cu"):
+            proc = subprocess.run(
+                [_kernels._nvcc(), "-gencode", _kernels.GENCODE, "-std=c++17", "-O3", "-c",
+                 "-Xptxas", "-v", "-I", str(_kernels.CSRC), "-o", f"{work}/{src}.o",
+                 str(_kernels.CSRC / src)], capture_output=True, text=True, check=True)
+            current = ""
+            for line in (proc.stdout + proc.stderr).splitlines():
+                if "Compiling entry function" in line or "Function properties for" in line:
+                    current = line.split("'")[1] if "'" in line else line.split()[-1]
+                elif current:
+                    lines.setdefault(current, []).append(line)
+    return lines
+
+
+def test_xattn_layer_bf16_build_fits_its_design(dev):
+    """The bf16 instantiations of F and F-bwd spill nothing, and one wave
+    holds one block of 8 warps on every SM (F) or on the SMs that clusters
+    of 2D / 64 blocks can take (F-bwd)."""
+    lines = _layer_ptxas()
+    tc = {name: text for name, text in lines.items()
+          if "layer_fwd_tc" in name or "layer_bwd_tc" in name}
+    assert len(tc) == 4, sorted(lines)
+    for name, text in tc.items():
+        joined = " ".join(text)
+        assert "0 bytes spill stores" in joined and "0 bytes spill loads" in joined, (name, joined)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for D in (128, 64):
+        ctas, smem = xattn.layer_grid(D, torch.bfloat16, False, dev)
+        assert ctas == sms and 0 < smem <= 232448, (D, ctas, smem)
+        ctas, smem = xattn.layer_grid(D, torch.bfloat16, True, dev)
+        C = 2 * D // 64
+        assert ctas % C == 0 and sms // 2 < ctas <= sms and 0 < smem <= 232448, (D, ctas, smem)
+
+
+def test_xattn_layer_bf16_kernels_run_on_tensor_cores(dev):
+    """The machine code of F's and F-bwd's bf16 kernels holds tensor-core
+    instructions (HMMA or HGMMA in `cuobjdump -sass` of the built library)."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        pytest.skip("needs cuobjdump (the CUDA toolkit)")
+    sass = subprocess.run([tool, "-sass", str(_kernels.build())], capture_output=True,
+                          text=True, check=True).stdout
+    counts, current = {}, ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = line.split("Function :")[1].strip()
+        elif "HMMA" in line or "HGMMA" in line:
+            counts[current] = counts.get(current, 0) + 1
+    for kernel in ("layer_fwd_tcILi128", "layer_fwd_tcILi64", "layer_bwd_tcILi128",
+                   "layer_bwd_tcILi64"):
+        assert any(kernel in name and n > 0 for name, n in counts.items()), (kernel, counts)
 
 
 @pytest.mark.parametrize("C", [8, 16])

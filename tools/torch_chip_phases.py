@@ -3,13 +3,15 @@
     python tools/torch_chip_phases.py 3b 3c          # from a checkout's root
     python tools/torch_chip_phases.py --tree PATH 3b # the checkout at PATH
     python tools/torch_chip_phases.py --tree PATH fwd bwd
+    python tools/torch_chip_phases.py --tree PATH 4 4b layer
 
 Builds the kernels of the checkout it runs from (or of --tree), sets the
 fp32 comparisons' flags as chip_smoke.py does (TF32 off) and runs the named
 phases: 3 (D), 3b (E, C, A-bwd), 3c (A-fwd, B), 3d (the unfused chain), 3e
 (D-bwd), 3f (the warp modes and NaN grids), 3g (the OFW route), 13 (I-fwd),
 14 (I-ckpt and I-bwd), 19 (kernel H), 20 (H on the shipped segmented
-route, and its A/B). Each phase holds its kernels against their plain
+route, and its A/B), 4 and 4b (F and F-bwd, the decoder layer, at D = 128
+and 64). Each phase holds its kernels against their plain
 versions and logs their times, as in the whole script; a phase that
 returns the JSON line's numbers prints them.
 
@@ -29,6 +31,13 @@ It takes its timers from the chip_smoke.py beside this tool, whatever
 --tree is, and only `ops.scan` from the tree, so one run per tree compares
 any two trees since the kernels' port.
 
+`layer` times kernels F and F-bwd alone, bf16, at (16, 16384, D) for D =
+128 and 64 (SMOW_Net's and SMOW_Net_LW's decoder layer at 16 x 256^2), on
+inputs made on the card from a seed: F through `xattn.cross_layer_head1`,
+F-bwd through `xattn._kernel_bwd`, each as the wrapper (CUDA events over 20
+calls) and as the kernel alone (`launch_ms`, CUDA events around each
+launch, over 20 calls).
+
 For an A/B of two trees on one card, call it once per tree in turns
 (parent, change, change, parent).
 """
@@ -41,7 +50,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ["3", "3b", "3c", "3d", "3e", "3f", "3g", "13", "14", "19", "20", "fwd", "bwd"]
+PHASES = ["3", "3b", "3c", "3d", "3e", "3f", "3g", "4", "4b", "13", "14", "19", "20", "fwd",
+          "bwd", "layer"]
 # the sweeps each timing mode takes
 SWEEPS = {"fwd": ("I-fwd", "I-ckpt", "H-fwd", "H-ckpt", "carry"), "bwd": ("I-bwd", "H-bwd")}
 
@@ -124,6 +134,39 @@ def sweep_times(dev, mode: str) -> dict:
     return out
 
 
+def layer_times(dev) -> dict:
+    """Kernels F and F-bwd, bf16, at (16, 16384, D), D = 128 and 64: the
+    wrapper and the kernel alone (see the module's docstring)."""
+    import torch
+
+    from smow_net_tpu_torch.ops import xattn
+
+    cs = own_chip_smoke()
+    gen = torch.Generator(dev).manual_seed(91)
+    out = {}
+    for D in (128, 64):
+        def rand(*shape, scale=1.0, off=0.0):
+            return (torch.randn(shape, device=dev, generator=gen) * scale + off).to(torch.bfloat16)
+
+        args = [rand(16, 16384, D), rand(D, scale=0.2, off=1.0), rand(D, scale=0.1),
+                rand(D, 8, scale=0.1), rand(16, 8, 8), rand(16, 8, 8), rand(8, D, scale=0.1),
+                rand(D, scale=0.1), rand(D, scale=0.2, off=1.0), rand(D, scale=0.1),
+                rand(D, 2 * D, scale=D ** -0.5), rand(2 * D, scale=0.1),
+                rand(2 * D, D, scale=(2 * D) ** -0.5), rand(D, scale=0.1)]
+        gy, scale = rand(16, 16384, D), D ** -0.5
+        calls = {f"F D={D}": (lambda: xattn.cross_layer_head1(*args, scale=scale),
+                              "xattn_layer_fwd"),
+                 f"F-bwd D={D}": (lambda: xattn._kernel_bwd(args, gy, scale, None, 1e-5),
+                                  "xattn_layer_bwd")}
+        for name, (fn, entry) in calls.items():
+            t = cs.cuda_ms(fn, iters=20, warmup=3)
+            tk = cs.launch_ms(fn, entry, iters=20)
+            print(f"  {name}: wrapper {t:.4f} ms, kernel {tk:.4f} ms", flush=True)
+            out[name], out[name + " kernel"] = t, tk
+        del args, gy
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=".", help="checkout whose kernels to build and run")
@@ -149,7 +192,8 @@ def main() -> None:
     print(f"kernels of {args.tree} built and loaded in {time.perf_counter() - t0:.1f} s ({card})",
           flush=True)
     if hasattr(cs, "ptxas_lines"):
-        for kernel in ("scan_fwd_kernel", "scan_bwd_kernel"):
+        layer = {"4", "4b", "layer"} & set(args.phases)
+        for kernel in ("layer_",) if layer else ("scan_fwd_kernel", "scan_bwd_kernel"):
             for line in cs.ptxas_lines(kernel):
                 print("  ptxas " + line, flush=True)
     rate = cs.mufu_per_s()
@@ -160,7 +204,10 @@ def main() -> None:
               "14": lambda d: cs.phase_scan_bwd(d, rate),
               "19": lambda d: cs.phase_flat_scan(d, rate),
               "20": lambda d: cs.phase_seg_scan(d, rate),
-              "fwd": lambda d: sweep_times(d, "fwd"), "bwd": lambda d: sweep_times(d, "bwd")}
+              "4": lambda d: {D: cs.phase_kernel_f(d, D) for D in (128, 64)},
+              "4b": lambda d: {D: cs.phase_kernel_f_bwd(d, D) for D in (128, 64)},
+              "fwd": lambda d: sweep_times(d, "fwd"), "bwd": lambda d: sweep_times(d, "bwd"),
+              "layer": layer_times}
     for name in args.phases:
         result = phases[name](dev)
         if isinstance(result, dict):
