@@ -8,7 +8,9 @@ Phases (any failure raises and exits non-zero; no result line is printed):
   1. card name and power limit (nvidia-smi); TF32 off for the fp32 phases
   2. build the hand-written kernels (smow_net_tpu_torch/csrc, nvcc sm_90a)
   3. kernel D (token scatter) vs its plain version: fp32 and bf16 at
-     (32, 128, 128, 8), a logit spread > 87 (zaw underflow), C = 16
+     (32, 128, 128, 8), a logit spread > 87 (zaw underflow), C = 16, and a
+     far-scattered flow (every tile's box too wide to sort: the tile
+     scatter's direct branch); each case logs its tiles' branches
   3b. the token chain's train kernels vs their plain versions, same cases:
      E (D plus the eaw residual), C (`grid_sample_t_vjp`), A-bwd
      (`grid_sample_bwd`); A-bwd also on a smooth flow (a numpy-seeded 8x8
@@ -129,7 +131,10 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      CD-Mamba scan shape, fp32 and bf16: kernels H-seg carry and adjcarry,
      and H-fwd, H-ckpt and H-bwd seeded as the segmented route seeds them,
      vs their plain versions (the H rows' and the carry's and adjcarry's
-     max_abs_err come from here, bf16); the segmented forward and backward
+     max_abs_err come from here, bf16); the carry and adjcarry on ragged
+     segments (L % 16 != 0, Cg % 32 != 0) in both layouts; the adjcarry's
+     build (at most 64 registers, no spills) and residency (32 warps per
+     SM) and two runs bitwise equal; the segmented forward and backward
      at S = 4 and the shipped S vs the sequential kernels and the plain scan
      at (64, 65536, 32) and (64, 16384, 64); the carry's and adjcarry's
      times at (64, 65536, 32) on the shipped S; then the A/B that sets
@@ -410,6 +415,24 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def log_port_kernels(on_device, calls: int, unit: str) -> None:
+    """The port's own kernels (each `__global__` function of csrc/) among
+    the profiler's device events, each instantiation's device time per
+    `unit` over `calls` calls: the template arguments tell the modes of one
+    kernel apart (the forward sweep's mode 3 is the adjcarry)."""
+    from smow_net_tpu_torch.ops import _kernels
+
+    names = set()
+    for src in _kernels.CSRC.glob("*.cu*"):
+        names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+                                src.read_text()))
+    ours = [e for e in on_device if any(f"::{n}<" in e.key or f"::{n}(" in e.key for n in names)]
+    for e in sorted(ours, key=lambda e: -e.self_device_time_total):
+        name = e.key.split("::", 1)[1].split("(", 1)[0]
+        log(f"    port kernel {e.self_device_time_total / 1e3 / calls:8.3f} ms/{unit}  "
+            f"{e.count // calls:4d}x  {name}")
+
+
 def device_events(averages):
     """The profiler's kernels on the card; a user annotation's range (the
     optimizer's step) also shows as a device event, and counting it would
@@ -539,14 +562,17 @@ def phase_kernel_d(dev) -> dict:
     rng = np.random.default_rng(3)
     result = {}
 
-    def case(label, shape, spike=False):
+    def case(label, shape, spike=False, far=False):
         F_, H, W, C = shape
         a = torch.from_numpy((rng.normal(size=shape) * 2.0).astype(np.float32)).to(dev)
         flow = torch.from_numpy((rng.normal(size=(F_, H, W, 2)) * 3.0).astype(np.float32))
         if spike:   # spike along the left column; the grid samples only the right one
             a[:, :, 0, 0] = 150.0
             flow[..., 0] = 3.0 * W
+        if far:
+            flow = torch.from_numpy(far_flow(rng, F_, H, W))
         grid = warp.flow_grid(flow.to(dev), H, W)
+        log_branches(label, grid, C, far)
         for dt in (torch.float32, torch.bfloat16):
             x = a.to(dt)
             m = x.amax(dim=(1, 2)).float()
@@ -577,13 +603,33 @@ def phase_kernel_d(dev) -> dict:
     case("slice", (32, 128, 128, 8))
     case("spread>87", (32, 128, 128, 8), spike=True)
     case("W*C=2048", (32, 128, 128, 16))
+    case("far flow", (32, 128, 128, 8), far=True)
     return result
 
 
-def _token_inputs(dev, shape, seed, spike=False):
+def far_flow(rng, F_, H, W) -> np.ndarray:
+    """A far-scattered flow (F, H, W, 2) fp32 in pixels, uniform over twice
+    the image's size each way: the grid clamps it to the borders, so every
+    tile's corners span the image, too wide a box for the tile scatter to
+    sort (its direct branch)."""
+    return (rng.uniform(-2.0, 2.0, size=(F_, H, W, 2)) * np.array([W, H])).astype(np.float32)
+
+
+def log_branches(label: str, grid: torch.Tensor, C: int, far: bool = False) -> None:
+    """Log how many tiles of the grid the tile scatter (kernels B, A-bwd, D,
+    E) sorts and how many it adds directly; a far-scattered grid must take
+    the direct branch."""
+    from smow_net_tpu_torch.ops import warp
+
+    n_sorted, n_direct = warp.tile_scatter_branches(grid, *grid.shape[1:3], C)
+    log(f"  {label}: tile scatter at C = {C}: {n_sorted} tiles sorted, {n_direct} direct")
+    require(not far or n_direct > 0, f"{label}: the far flow takes the direct branch")
+
+
+def _token_inputs(dev, shape, seed, spike=False, far=False):
     """Logits a, the flow grid, and two cotangent-like tensors, numpy-seeded;
     with `spike`, a logit spike > 87 on the left column that the grid never
-    samples (the zaw underflow case)."""
+    samples (the zaw underflow case); with `far`, a far-scattered flow."""
     from smow_net_tpu_torch.ops import warp
 
     rng = np.random.default_rng(seed)
@@ -593,6 +639,8 @@ def _token_inputs(dev, shape, seed, spike=False):
     if spike:
         a[:, :, 0, 0] = 150.0
         flow[..., 0] = 3.0 * W
+    if far:
+        flow = far_flow(rng, F_, H, W)
     r, s = (torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(dev)
             for sh in (shape, (F_, C)))
     flow = torch.from_numpy(flow).to(dev)
@@ -651,8 +699,9 @@ def phase_token_backward(dev) -> dict:
     log("phase 3b: token chain train kernels E, C, A-bwd vs their plain versions")
     results = {"token_scatter_fwd_eaw": {}, "grid_sample_t_vjp": {}, "grid_sample_bwd": {}}
 
-    def case(label, shape, spike=False):
-        a, flow, grid, r, _ = _token_inputs(dev, shape, 30, spike)
+    def case(label, shape, spike=False, far=False):
+        a, flow, grid, r, _ = _token_inputs(dev, shape, 30, spike, far)
+        log_branches(label, grid, shape[-1], far)
         for dt in (torch.float32, torch.bfloat16):
             x, xbar = a.to(dt), r.to(dt)
             rtol = 1e-5 if dt == torch.float32 else BF16_REL
@@ -712,6 +761,7 @@ def phase_token_backward(dev) -> dict:
     case("slice", (32, 128, 128, 8))
     case("spread>87", (32, 128, 128, 8), spike=True)
     case("W*C=2048", (32, 128, 128, 16))
+    case("far flow", (32, 128, 128, 8), far=True)
 
     log("  token_softmax_scatter VJP, fp32: kernel path vs plain path (bound 1e-4 "
         "of the largest element: atomics order, and dgrid = dw1 - dw0 cancels)")
@@ -965,6 +1015,7 @@ def phase_warp_modes(dev) -> None:
     for C in (8, 16):
         a, _, grid, r, s = _token_inputs(dev, (32, 128, 128, C), 38)
         grid = with_nans(grid)
+        log_branches(f"NaN grid C={C}", grid, C)
         m = a.amax(dim=(1, 2)).float()
         names = ("token_scatter_fwd", "token_scatter_fwd_eaw", "token_scatter_bwd")
         before = {n: _kernels.launches[n] for n in names}
@@ -1389,11 +1440,11 @@ def _scan_args(dev, shape, seed, dtype=torch.float32):
 
 
 def log_fwd_build(flat: bool) -> None:
-    """The forward sweep's (`scan_fwd_kernel`: I-fwd, I-ckpt and the carry)
-    build and residency in one layout: the ptxas lines (registers, spills)
-    of its instantiations in both dtypes and three modes, and its resident
-    warps per SM and shared memory per block (the CUDA occupancy
-    calculator)."""
+    """The forward sweep's (`scan_fwd_kernel`: I-fwd, I-ckpt, the carry and
+    the adjcarry) build and residency in one layout: the ptxas lines
+    (registers, spills) of its instantiations in both dtypes and four
+    modes, and its resident warps per SM and shared memory per block (the
+    CUDA occupancy calculator)."""
     from smow_net_tpu_torch.ops import scan
 
     for line in ptxas_lines("scan_fwd_kernel"):
@@ -1753,6 +1804,63 @@ def _shipped_route_errors(dev, B, L, G, Cg, dtype) -> dict:
     return errs
 
 
+def _ragged_seg_errors(dev, flat: bool) -> None:
+    """The carry and adjcarry on 4 segments of 1000 steps (an 8-step last
+    chunk, the adjcarry's first) of 8 rows at Cg = 40 (an idle tail of a
+    32-channel block), in the flat or the grouped layout, fp32 and bf16,
+    against their plain versions on the same values in fp32 (1e-5 of the
+    largest element, as phase 20's)."""
+    from smow_net_tpu_torch.ops import scan
+
+    B, L, G, Cg, S = 4, 4000, 2, 40, 4
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _flat_args(dev, B, L, G, Cg, 64, dtype)
+        gy = torch.randn(args[0].shape, device=dev,
+                         generator=torch.Generator(dev).manual_seed(65)).to(dtype)
+        if not flat:              # the same values in the grouped layout
+            grouped = lambda t, w: t.reshape(B, L, G, w).transpose(1, 2).contiguous()
+            args = [grouped(args[0], Cg), grouped(args[1], Cg), args[2], grouped(args[3], 16),
+                    grouped(args[4], 16), args[5], args[6]]
+            gy = grouped(gy, Cg)
+        a = scan._Args(*args, flat=flat)
+        ref = scan._Args(*[t.float() for t in args], flat=flat)
+        label = f"ragged ({a.rows} rows, {L}, {Cg}) S={S} {'flat' if flat else 'grouped'} " \
+                f"{str(dtype)[6:]}"
+        hend, csum = scan.scan_carry(a, S)
+        hend_p, csum_p = scan.scan_carry_plain(ref, S)
+        check(f"carry {label} hend", hend, hend_p, 0.0, 1e-5)
+        check(f"carry {label} csum", csum, csum_p, 0.0, 1e-5)
+        check(f"adjcarry {label} g", scan.scan_adjcarry(a, gy, S),
+              scan.scan_adjcarry_plain(ref, gy.float(), S), 0.0, 1e-5)
+
+
+def check_adjcarry_build() -> None:
+    """The adjcarry (`scan_fwd_kernel` in mode 3, kModeAdj): the ptxas lines
+    of its four instantiations (2 dtypes x 2 layouts), each at most 64
+    registers and 0 spill bytes, and 32 resident warps per SM in each."""
+    from smow_net_tpu_torch.ops import _kernels, scan
+
+    require(_kernels.build_report, "this process built the kernels (ptxas lines to read)")
+    lines = [line for line in ptxas_lines("scan_fwd_kernel")
+             if re.search(r"scan_fwd_kernelI\w+?Li3ELb[01]E", line)]
+    regs = [int(m.group(1)) for m in (re.search(r"Used (\d+) registers", x) for x in lines) if m]
+    spills = [int(a) + int(b) for a, b in
+              (re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", x).groups()
+               for x in lines if "spill stores" in x)]
+    for line in lines:
+        log("  ptxas " + line)
+    require(len(regs) == len(spills) == 4 and max(regs) <= 64 and not any(spills),
+            f"the adjcarry builds at most 64 registers, no spills, in 4 instantiations: "
+            f"registers {regs}, spill bytes {spills}")
+    for flat in (False, True):
+        for bf16 in (False, True):
+            warps, smem = scan.fwd_occupancy("adjcarry", flat, bf16)
+            log(f"  adjcarry occupancy, {'flat' if flat else 'grouped'} "
+                f"{'bf16' if bf16 else 'fp32'}: {warps} resident warps per SM, {smem} bytes of "
+                "shared memory a block")
+            require(warps >= 32, "the adjcarry holds 32 warps per SM")
+
+
 def phase_seg_scan(dev, rate: float) -> dict:
     from smow_net_tpu_torch.ops import scan
 
@@ -1775,6 +1883,9 @@ def phase_seg_scan(dev, rate: float) -> dict:
                     if n in FLAT_KERNELS or (B, L, G, Cg) == (32, 65536, 2, 32):
                         errors[n] = max(errors[n], e)
     results = {n: {"max_abs_err": errors[n]} for n in FLAT_KERNELS + SEG_KERNELS}
+    for flat in (True, False):
+        _ragged_seg_errors(dev, flat)
+    check_adjcarry_build()
     for (B, L, G, Cg) in ((32, 65536, 2, 32), (32, 16384, 2, 64)):
         args = _flat_args(dev, B, L, G, Cg, 62)
         a = scan._Args(*args, flat=True)
@@ -1813,6 +1924,9 @@ def phase_seg_scan(dev, rate: float) -> dict:
     for label, r in (("carry", c), ("adjcarry", ad)):
         log(f"  {label} at ({B * G} rows, {L}, {Cg}) S={S}, bf16: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    require(torch.equal(scan.scan_adjcarry(a, gy, S), scan.scan_adjcarry(a, gy, S)),
+            "the adjcarry gives the same bits on two runs")
+    log("  adjcarry at the timed shape, twice: bitwise equal")
     del a, args, gy
     # the A/B: sequential against segmented, bf16, forward and forward + backward
     log("  A/B, bf16, ms per call (CUDA events, 3 calls): sequential (S=1) vs segmented")
@@ -2165,9 +2279,11 @@ def phase_main_path(dev, name: str, phase: int, rounds: int, per_round: int = 5)
     for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"    {e.self_device_time_total / 1e3 / len(batches):8.3f} ms/batch  "
             f"{e.count // len(batches):4d}x  {e.key[:90]}")
+    log_port_kernels(on_device, len(batches), "batch")
     os.makedirs(PROFILE_DIR, exist_ok=True)
     with open(os.path.join(PROFILE_DIR, f"{name}_eval_bf16_bs16_profile.txt"), "w") as fh:
-        fh.write(averages.table(sort_by="cuda_time_total", row_limit=40))
+        fh.write(averages.table(sort_by="cuda_time_total", row_limit=40,
+                                max_name_column_width=100))
     log(f"  profile table written to {PROFILE_DIR}")
     return launches
 
@@ -2409,9 +2525,11 @@ def phase_train(dev, name: str, phase: int, rounds: int, per_round: int = 5,
     for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"    {e.self_device_time_total / 1e3 / 3:8.3f} ms/step  {e.count // 3:4d}x  "
             f"{e.key[:90]}")
+    log_port_kernels(on_device, 3, "step")
     os.makedirs(PROFILE_DIR, exist_ok=True)
     with open(os.path.join(PROFILE_DIR, f"{name}_train_bf16_bs16_profile.txt"), "w") as fh:
-        fh.write(averages.table(sort_by="cuda_time_total", row_limit=60))
+        fh.write(averages.table(sort_by="cuda_time_total", row_limit=60,
+                                max_name_column_width=100))
     return launches
 
 

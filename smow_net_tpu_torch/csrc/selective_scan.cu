@@ -7,9 +7,9 @@
 // sweep that writes only each segment's final state and its dt sum) and the
 // adjoint carry (the reverse recurrence of the adjoint alone); I-fwd, I-ckpt
 // and I-bwd then run seeded with each segment's incoming state and adjoint.
-// I-fwd, I-ckpt and the carry are one kernel, scan_fwd_kernel, in three
-// modes (the store differs, the sweep is the same); the adjoint carry is
-// scan_adjcarry_kernel.
+// I-fwd, I-ckpt, the carry and the adjoint carry are one kernel,
+// scan_fwd_kernel, in four modes (the store differs; the adjoint carry walks
+// the same sweep backwards).
 //
 // Replaces, in smow_net_tpu/ops/pallas/scan_fused.py, `_fwd_kernel` (:147,
 // reached by `_fwd_core`'s pallas_call :413) and `_ckpt_kernel` (:261, the
@@ -79,17 +79,31 @@
 // in those modes. Each kernel computes its rows' offsets from the layout,
 // so the flat layout needs no transposed copy on either side.
 //
+// The adjoint carry (kModeAdj) is the same sweep with the chunks and the
+// steps of a chunk walked last to first: the "u" tile holds dy and the "B"
+// rows hold C, the softplus pass stores dy in place of dt u, and the step
+// is g = exp2(dt' a2) g + C[t] dy[t], where dt' is the dt of the step
+// after (kept in a register from step to step and across the chunk
+// boundary; g starts at 0, so the first step's dt' only has to be finite).
+// A step costs what the forward step costs, and rounds as the one-warp
+// kernel this mode replaced did (e g rounded, then C dy added in an FMA;
+// the forward sweep's FMA takes e h instead), so the adjoint carry's
+// outputs keep that kernel's bits: in the forward's order, one leaf of
+// CD-Mamba's fp32 gradient (an encoder layer's skip_scale) moved by 1.25e-3
+// of its largest element against the plain backward, over chip_smoke.py
+// phase 22's bound of 1e-3 (PERF.md). The chunk walked first is the row's
+// ragged last one, staged by stage_tile; chunk j - 1's copies are in
+// flight while chunk j's steps run. A fourth mode takes fewer lines than a
+// sibling kernel on the same helpers, and runs at the carry's rate (the
+// one-warp kernel it replaced, without prefetch, took 1.5x as long;
+// PERF.md).
+//
 // Build (nvcc -Xptxas -v, sm_90a, CUDA 12.8): at most 64 registers a
-// thread (the launch bounds) and 0 spill bytes in all twelve
-// instantiations (3 modes x 2 dtypes x 2 layouts); 26,624 bytes of static
+// thread (the launch bounds) and 0 spill bytes in all sixteen
+// instantiations (4 modes x 2 dtypes x 2 layouts); 26,624 bytes of static
 // shared memory a block in fp32, 20,480 in bf16; 8 blocks, 32 warps per SM
 // on an H100 (`selective_scan_fwd_occupancy`, the CUDA occupancy
-// calculator). chip_smoke.py's phases 13 and 19 log both.
-//
-// The adjoint carry keeps the earlier one-warp design: a block is one warp
-// of 16 channels, two lanes a channel, eight states a lane, the chunk's C
-// rows staged in shared memory through registers, the chunk's dts and dy
-// loaded by each lane.
+// calculator). chip_smoke.py's phases 13, 19 and 20 log both.
 
 #include <cstddef>
 
@@ -98,8 +112,9 @@
 namespace {
 
 // I-fwd's sweep writes y, I-ckpt's the chunk-start states, the carry's the
-// final state and the dt sum
-enum { kModeFwd = 0, kModeCkpt = 1, kModeCarry = 2 };
+// final state and the dt sum, the adjoint carry's (walked backwards) the
+// adjoint at the first step
+enum { kModeFwd = 0, kModeCkpt = 1, kModeCarry = 2, kModeAdj = 3 };
 
 constexpr int kFwdMinBlocks = 8;        // 64 registers a thread at most: 32 warps an SM
 
@@ -168,24 +183,34 @@ __device__ __forceinline__ void store_y(T* __restrict__ dst, const FwdSmem<T>& s
 // The forward sweep's steps of one chunk for this lane (channel cl of the
 // block, the warp's states n0..n0 + 3), B and C rows in fp32 at Bf and Cf;
 // in kModeFwd the lane's part of y goes into the warp's tile (warp 0 adds
-// D u), in kModeCarry the lane sums dt. kFull: all kChunk steps, with no
+// D u), in kModeCarry the lane sums dt into dacc; kModeAdj walks the steps
+// last to first, B and dt u standing for C and dy, with the decay of the
+// step after, whose dt dacc carries. kFull: all kChunk steps, with no
 // per-step branch.
 template <typename T, int kMode, bool kFull>
 __device__ __forceinline__ void fwd_steps(FwdSmem<T>& sm, const FwdStage<T>& st,
                                           const float (*Bf)[kN], const float (*Cf)[kN], int cl,
                                           int n0, const float (&a2)[kStates],
-                                          float (&h)[kStates], float d_c, float& dsum, int n_t) {
+                                          float (&h)[kStates], float d_c, float& dacc, int n_t) {
   constexpr bool kY = kMode == kModeFwd;
+  constexpr bool kAdj = kMode == kModeAdj;
   const int warp = threadIdx.x / 32;
 #pragma unroll
-  for (int t = 0; t < kChunk; ++t) {
+  for (int q = 0; q < kChunk; ++q) {
+    const int t = kAdj ? kChunk - 1 - q : q;
     if (kFull || t < n_t) {
       const float dt = sm.dt[t][cl], dtu = sm.dtu[t][cl];
+      const float dd = kAdj ? dacc : dt;     // the adjoint decays by the step after's dt
       float b[kStates];
       load4(&Bf[t][n0], b);                  // the same address across the warp
 #pragma unroll
-      for (int i = 0; i < kStates; ++i) h[i] = exp2_ftz(dt * a2[i]) * h[i] + b[i] * dtu;
-      if (kMode == kModeCarry) dsum += dt;
+      for (int i = 0; i < kStates; ++i) {
+        const float e = exp2_ftz(dd * a2[i]);
+        // the adjoint rounds e g, then adds C dy in the FMA (see the header)
+        h[i] = kAdj ? fmaf(b[i], dtu, e * h[i]) : e * h[i] + b[i] * dtu;
+      }
+      if (kMode == kModeCarry) dacc += dt;
+      if (kAdj) dacc = dt;
       if (kY) {
         float cm[kStates];
         load4(&Cf[t][n0], cm);
@@ -201,7 +226,9 @@ __device__ __forceinline__ void fwd_steps(FwdSmem<T>& sm, const FwdStage<T>& st,
 
 // I-fwd (kModeFwd): y. I-ckpt (kModeCkpt): the state before every chunk into
 // hout (rows', chunks, 16, Dk). The carry (kModeCarry): the state after the
-// last step into hout (rows', 16, Dk) and the sum of dt into csum. Cm, Dv
+// last step into hout (rows', 16, Dk) and the sum of dt into csum. The
+// adjoint carry (kModeAdj, u = dy, Bm = C, h0 null): the adjoint at the
+// first step from zero after the last into hout (rows', 16, Dk). Cm, Dv
 // and y are read or written in kModeFwd only; h0 may be null. One row r =
 // row0 + blockIdx.y and the 32 channels of block x: lane l of warp w owns
 // channel l and states 4 w..4 w + 3.
@@ -213,6 +240,7 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dts, const T* __r
                 const float* __restrict__ h0, T* __restrict__ y, float* __restrict__ hout,
                 float* __restrict__ csum, Rows<kFlat> rw, int Dk) {
   constexpr bool kY = kMode == kModeFwd;
+  constexpr bool kAdj = kMode == kModeAdj;
   constexpr bool kF32 = std::is_same<T, float>::value;
   __shared__ __align__(16) FwdSmem<T> sm;
   const int cl = threadIdx.x % 32;                    // the lane's channel
@@ -290,20 +318,22 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dts, const T* __r
     cp_async_commit();
   };
 
-  float dsum = 0.f;
-  stage(0, sm.ring[0]);
-  for (int j = 0, s = 0; j < n_chunks; ++j, s ^= 1) {
+  float dacc = 0.f;           // the carry's dt sum; the adjoint carry's dt of the step after
+  // the adjoint carry walks the chunks last to first
+  const int j0 = kAdj ? n_chunks - 1 : 0, j_end = kAdj ? -1 : n_chunks, dj = kAdj ? -1 : 1;
+  stage(j0, sm.ring[0]);
+  for (int j = j0, s = 0; j != j_end; j += dj, s ^= 1) {
     const int n_t = min(kChunk, L - j * kChunk);
     cp_async_wait_all();
-    __syncthreads();          // chunk j's tiles are in place; chunk j - 1's steps are done
-    if (j + 1 < n_chunks) stage(j + 1, sm.ring[s ^ 1]);    // in flight while chunk j runs
+    __syncthreads();          // chunk j's tiles are in place; the previous chunk's steps are done
+    if (j + dj != j_end) stage(j + dj, sm.ring[s ^ 1]);    // in flight while chunk j runs
     const FwdStage<T>& st = sm.ring[s];
     if (kY && j > 0)          // chunk j - 1's y, which its steps left in the warps' tiles
       store_y<T>(y + ub + (size_t)(j - 1) * kChunk * su, sm, su, kChunk, n_c, vec_y);
     for (int t = threadIdx.x / kBlockChannels; t < kChunk; t += kThreads / kBlockChannels) {
       const float dt = softplus(smow::to_float(st.dts[t][cl]) + bias_c);
       sm.dt[t][cl] = dt;
-      sm.dtu[t][cl] = dt * smow::to_float(st.u[t][cl]);
+      sm.dtu[t][cl] = kAdj ? smow::to_float(st.u[t][cl]) : dt * smow::to_float(st.u[t][cl]);
     }
     if (!kF32) {              // the B (and C) rows in fp32: 4 values a thread
       const int t = threadIdx.x % (kChunk * kN / 4) / 4, n = threadIdx.x % 4 * 4;
@@ -324,19 +354,19 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dts, const T* __r
     const float (*Bf)[kN] = kF32 ? reinterpret_cast<const float (*)[kN]>(st.Bm) : sm.Bm;
     const float (*Cf)[kN] = kF32 ? reinterpret_cast<const float (*)[kN]>(st.Cm) : sm.Cm;
     if (n_t == kChunk)
-      fwd_steps<T, kMode, true>(sm, st, Bf, Cf, cl, n0, a2, h, d_c, dsum, n_t);
+      fwd_steps<T, kMode, true>(sm, st, Bf, Cf, cl, n0, a2, h, d_c, dacc, n_t);
     else
-      fwd_steps<T, kMode, false>(sm, st, Bf, Cf, cl, n0, a2, h, d_c, dsum, n_t);
+      fwd_steps<T, kMode, false>(sm, st, Bf, Cf, cl, n0, a2, h, d_c, dacc, n_t);
   }
   if (kY) {
     __syncthreads();          // the last chunk's y
     const int j = n_chunks - 1;
     store_y<T>(y + ub + (size_t)j * kChunk * su, sm, su, L - j * kChunk, n_c, vec_y);
   }
-  if (kMode == kModeCarry && active) {
+  if ((kMode == kModeCarry || kAdj) && active) {
 #pragma unroll
     for (int i = 0; i < kStates; ++i) hout[((size_t)r * kN + n0 + i) * Dk + c] = h[i];
-    if (n0 == 0) csum[(size_t)r * Dk + c] = dsum;
+    if (kMode == kModeCarry && n0 == 0) csum[(size_t)r * Dk + c] = dacc;
   }
 }
 
@@ -349,130 +379,6 @@ cudaError_t configure_fwd() {
       scan_fwd_kernel<T, kMode, kFlat>, cudaFuncAttributePreferredSharedMemoryCarveout,
       (int)cudaSharedmemCarveoutMaxShared);
   return err;
-}
-
-// The adjoint carry's one-warp block (see the header): 16 channels, two
-// lanes a channel, eight states a lane.
-constexpr int kHalf = 8;      // states per lane
-constexpr int kLanes = 32;    // threads per block: one warp
-constexpr int kChannels = kLanes / 2;   // channels per block
-
-// A chunk's rows of C (16 values a step) pass through registers on the way
-// to shared memory: each lane loads its kRowVals of the chunk's 16 x 16
-// values, all loads issued together, then stores them once the previous
-// chunk's rows are read.
-constexpr int kRowVals = kChunk * kN / kLanes;
-
-// The chunk's n_t rows, row t at src + t * sn, as fp32 (zero past n_t).
-template <typename T>
-__device__ __forceinline__ void load_rows(const T* __restrict__ src, int sn, int n_t,
-                                          float (&v)[kRowVals]) {
-#pragma unroll
-  for (int k = 0; k < kRowVals; ++k) {
-    const int i = threadIdx.x + k * kLanes, t = i / kN, n = i % kN;
-    v[k] = (t < n_t) ? smow::to_float(src[t * sn + n]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ void store_rows(const float (&v)[kRowVals], float (*dst)[kN]) {
-#pragma unroll
-  for (int k = 0; k < kRowVals; ++k) {
-    const int i = threadIdx.x + k * kLanes;
-    dst[i / kN][i % kN] = v[k];
-  }
-}
-
-// One lane's column of a chunk: dt = softplus(dts + bias) and dy, for the
-// chunk's n_t steps (zeros past them; dy zero on idle lanes). All loads and
-// softpluses are independent, so they issue together.
-template <typename T, bool kFull>
-__device__ __forceinline__ void load_chunk(const T* __restrict__ dts, const T* __restrict__ dy,
-                                           size_t at, int su, int n_t, float bias_c,
-                                           bool active, float (&dd)[kChunk],
-                                           float (&gy)[kChunk]) {
-#pragma unroll
-  for (int t = 0; t < kChunk; ++t) {
-    dd[t] = 0.f;
-    gy[t] = 0.f;
-    if (kFull || t < n_t) {
-      const size_t i = at + t * su;
-      dd[t] = softplus(smow::to_float(dts[i]) + bias_c);
-      if (active) gy[t] = smow::to_float(dy[i]);
-    }
-  }
-}
-
-// The adjoint carry's steps of one chunk, last to first, over this lane's 8
-// states: g_l = C_l dy_l + a_{l+1} g_{l+1}, then a_l = exp(dt_l A).
-template <bool kFull>
-__device__ __forceinline__ void adj_steps(const float (&dd)[kChunk], const float (&gy)[kChunk],
-                                          const float (*sC)[kN], const float (&a2)[kHalf],
-                                          float (&g)[kHalf], float (&a_next)[kHalf], int n0,
-                                          int n_t) {
-#pragma unroll
-  for (int t = kChunk - 1; t >= 0; --t) {
-    if (kFull || t < n_t) {
-#pragma unroll
-      for (int i = 0; i < kHalf; ++i) {
-        g[i] = sC[t][n0 + i] * gy[t] + a_next[i] * g[i];
-        a_next[i] = exp2f(dd[t] * a2[i]);
-      }
-    }
-  }
-}
-
-// The adjoint carry: the reverse sweep from zero incoming adjoint, reading
-// dts, Cm and dy only; writes g at the row's first step into gout (rows',
-// 16, Dk).
-template <typename T, bool kFlat>
-__global__ void __launch_bounds__(kLanes)
-scan_adjcarry_kernel(const T* __restrict__ dts, const T* __restrict__ Cm,
-                     const T* __restrict__ dy, const float* __restrict__ A,
-                     const float* __restrict__ bias, float* __restrict__ gout, Rows<kFlat> rw,
-                     int Dk) {
-  __shared__ float sC[kChunk][kN];
-  const int lane = threadIdx.x;
-  const int r = rw.row0 + blockIdx.y;
-  const int c = blockIdx.x * kChannels + (lane >> 1);
-  const int n0 = (lane & 1) * kHalf;
-  const bool active = c < Dk;
-  const int cc = active ? c : Dk - 1;     // idle lanes see dy = 0: g stays 0
-  const int k = rw.group(r);
-  float a2[kHalf], g[kHalf], a_next[kHalf];
-#pragma unroll
-  for (int i = 0; i < kHalf; ++i) {
-    a2[i] = A[((size_t)k * kN + n0 + i) * Dk + cc] * kLog2e;
-    g[i] = 0.f;
-    a_next[i] = 0.f;
-  }
-  const float bias_c = bias[(size_t)k * Dk + cc];
-  const int L = rw.L;
-  const int su = rw.step(Dk), sn = rw.step(kN);
-  const size_t row_u = rw.base(r, Dk) + cc, row_n = rw.base(r, kN);
-  const int n_chunks = (L + kChunk - 1) / kChunk;
-  for (int j = n_chunks - 1; j >= 0; --j) {
-    const int l0 = j * kChunk;
-    const int n_t = min(kChunk, L - l0);
-    const bool full = n_t == kChunk;
-    const size_t at = row_u + (size_t)l0 * su;
-    float dd[kChunk], gy[kChunk], vC[kRowVals];
-    load_rows<T>(Cm + row_n + (size_t)l0 * sn, sn, n_t, vC);
-    if (full)
-      load_chunk<T, true>(dts, dy, at, su, n_t, bias_c, active, dd, gy);
-    else
-      load_chunk<T, false>(dts, dy, at, su, n_t, bias_c, active, dd, gy);
-    __syncthreads();    // the previous chunk's rows are read
-    store_rows(vC, sC);
-    __syncthreads();
-    if (full)
-      adj_steps<true>(dd, gy, sC, a2, g, a_next, n0, n_t);
-    else
-      adj_steps<false>(dd, gy, sC, a2, g, a_next, n0, n_t);
-  }
-  if (active) {
-#pragma unroll
-    for (int i = 0; i < kHalf; ++i) gout[((size_t)r * kN + n0 + i) * Dk + c] = g[i];
-  }
 }
 
 template <typename T, int kMode, bool kFlat>
@@ -522,28 +428,10 @@ cudaError_t occupancy_of(int mode, int flat, int* warps) {
     case kModeCkpt * 2: return occupancy_as<T, kModeCkpt, false>(warps);
     case kModeCkpt * 2 + 1: return occupancy_as<T, kModeCkpt, true>(warps);
     case kModeCarry * 2: return occupancy_as<T, kModeCarry, false>(warps);
-    default: return occupancy_as<T, kModeCarry, true>(warps);
+    case kModeCarry * 2 + 1: return occupancy_as<T, kModeCarry, true>(warps);
+    case kModeAdj * 2: return occupancy_as<T, kModeAdj, false>(warps);
+    default: return occupancy_as<T, kModeAdj, true>(warps);
   }
-}
-
-template <typename T, bool kFlat>
-cudaError_t launch_adjcarry_as(const void* dts, const void* Cm, const void* dy, const void* A,
-                               const void* bias, void* gout, int rows, int L, int Dk, int G,
-                               int S, cudaStream_t s) {
-  return launch_rows<kChannels, kFlat>(rows, L, Dk, G, S, [&](dim3 grid, Rows<kFlat> rw) {
-    scan_adjcarry_kernel<T, kFlat><<<grid, kLanes, 0, s>>>(
-        static_cast<const T*>(dts), static_cast<const T*>(Cm), static_cast<const T*>(dy),
-        static_cast<const float*>(A), static_cast<const float*>(bias), static_cast<float*>(gout),
-        rw, Dk);
-  });
-}
-
-template <typename T>
-cudaError_t launch_adjcarry(const void* dts, const void* Cm, const void* dy, const void* A,
-                            const void* bias, void* gout, int rows, int L, int Dk, int G, int S,
-                            int flat, cudaStream_t s) {
-  if (flat) return launch_adjcarry_as<T, true>(dts, Cm, dy, A, bias, gout, rows, L, Dk, G, S, s);
-  return launch_adjcarry_as<T, false>(dts, Cm, dy, A, bias, gout, rows, L, Dk, G, S, s);
 }
 
 }  // namespace
@@ -600,7 +488,7 @@ extern "C" int selective_scan_carry(const void* u, const void* dts, const void* 
 }
 
 // H-seg adjoint carry: gout (rows, 16, Dk) fp32, the adjoint at each row's
-// first step from zero incoming.
+// first step from zero incoming; dy in dts's layout and dtype.
 extern "C" int selective_scan_adjcarry(const void* dts, const void* Cm, const void* dy,
                                        const void* A, const void* bias, void* gout, int rows,
                                        int L, int Dk, int G, int S, int flat, int is_bf16,
@@ -608,19 +496,22 @@ extern "C" int selective_scan_adjcarry(const void* dts, const void* Cm, const vo
   if (bad_shape(rows, L, Dk, G, S, flat)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_adjcarry<__nv_bfloat16>(dts, Cm, dy, A, bias, gout, rows, L, Dk, G, S,
-                                               flat, s)
-              : launch_adjcarry<float>(dts, Cm, dy, A, bias, gout, rows, L, Dk, G, S, flat, s);
+      is_bf16 ? launch_fwd<__nv_bfloat16, kModeAdj>(dy, dts, Cm, nullptr, A, nullptr, bias,
+                                                    nullptr, nullptr, gout, nullptr, rows, L, Dk,
+                                                    G, S, flat, s)
+              : launch_fwd<float, kModeAdj>(dy, dts, Cm, nullptr, A, nullptr, bias, nullptr,
+                                            nullptr, gout, nullptr, rows, L, Dk, G, S, flat, s);
   return static_cast<int>(err);
 }
 
 // The forward sweep's resident warps per SM on this card
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor x 4 warps a block) in mode
-// 0 (I-fwd), 1 (I-ckpt) or 2 (the carry), for the layout and dtype, into
-// *warps; and its shared memory per block, into *smem_bytes.
+// 0 (I-fwd), 1 (I-ckpt), 2 (the carry) or 3 (the adjoint carry), for the
+// layout and dtype, into *warps; and its shared memory per block, into
+// *smem_bytes.
 extern "C" int selective_scan_fwd_occupancy(int mode, int flat, int is_bf16, int* warps,
                                             int* smem_bytes) {
-  if (mode < kModeFwd || mode > kModeCarry || (flat != 0 && flat != 1))
+  if (mode < kModeFwd || mode > kModeAdj || (flat != 0 && flat != 1))
     return cudaErrorInvalidValue;
   *smem_bytes = is_bf16 ? (int)sizeof(FwdSmem<__nv_bfloat16>) : (int)sizeof(FwdSmem<float>);
   const cudaError_t err = is_bf16 ? occupancy_of<__nv_bfloat16>(mode, flat, warps)

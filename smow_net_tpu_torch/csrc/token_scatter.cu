@@ -24,66 +24,92 @@
 // the weight-gradient rows of both gathers summed (they share the grid);
 // the wrapper carries them to dgrid.
 //
-// What bounds it on the card: memory traffic and atomics, not arithmetic.
-// At the SMOW_Net shape (32 frames, 128x128, 8 channels) each pixel reads
-// four 8-channel logit rows (16 B each in bf16) and issues 32 fp32 atomic
-// adds into the 16 MB ew accumulator, which stays resident in the 50 MB L2.
-// E adds one 16-byte store per pixel in bf16. D-bwd reads eight corner rows
-// (four of a, four of ew_bar), issues the same 32 atomics into da and writes
-// four fp32 weight gradients.
+// What bounds it on the card: bytes, once the atomics are few. At the
+// SMOW_Net shape (32 frames, 128x128, 8 channels) each pixel reads four
+// 8-channel logit rows (16 B each in bf16, mostly from L1 and L2: a flow
+// of a few pixels reuses its neighbours' rows) and adds four weighted rows
+// into the 16 MB fp32 ew accumulator; E adds one 16-byte store per pixel in
+// bf16. D-bwd reads eight corner rows (four of a, four of ew_bar), scatters
+// into da and writes four fp32 weight gradients.
 //
 // Design: the TPU kernel expressed the gather and the scatter as one-hot
-// matmuls because the TPU has no fast gather. Here one thread owns one
-// output pixel: it computes its four corners and weights exactly as
+// matmuls because the TPU has no fast gather. D and E are kernel A-fwd's
+// gather followed by kernel B's scatter (tile_scatter.cuh): a block of
+// kScatterThreads takes a ScatterTile<C> tile of grid pixels; for each of
+// its slots a thread computes the four corners and weights exactly as
 // `_corner_indices_weights` does (common.cuh `bilinear_corners`), gathers
 // each corner's channel row with 16-byte loads, lerps and exponentiates in
-// fp32, and scatters w_k * eaw (D-bwd: w_k * daw) with atomicAdd into an
-// fp32 accumulator (the wrapper casts to the input dtype). zaw is reduced
-// per block with warp shuffles and added with one atomicAdd per block and
-// channel. Atomics make the summation order, and so the last bits of ew,
-// zaw and da, vary from run to run.
+// fp32, in E stores eaw with 16-byte vectors, and stages the row and notes
+// the corners in shared memory. `scatter_tile` then sorts the tile's
+// corners by the cells of its bounding box, sums each cell's weighted rows
+// in registers and adds each sum to ew with one 16-byte vector reduction
+// per four channels, or, where the box is too wide (a far-scattered or NaN
+// grid), adds the corner rows straight to ew as vector reductions. With one
+// thread per pixel issuing 4C scalar fp32 atomics (the design this one
+// replaced) the L2's atomic unit was the limit: 0.24 ms at (32, 128, 128,
+// 8), 3% of the byte bound (PERF.md). zaw is summed over a thread's slots,
+// then over the block with warp shuffles, and added with one atomicAdd per
+// block and channel; an empty slot adds nothing. D-bwd keeps the per-pixel
+// design: one thread per grid pixel, scatter_lerp's scalar atomics into da.
+// Atomics make the summation order, and so the last bits of ew, zaw and
+// da, vary from run to run.
 
-#include "common.cuh"
+#include "tile_scatter.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;   // D-bwd's block
 
+// D and E: one ScatterTile<C> tile of frame blockIdx.y's grid pixels a block.
 template <typename T, int C, bool kResidual>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(smow::kScatterThreads)
 token_scatter_fwd_kernel(const T* __restrict__ a, const float* __restrict__ grid,
                          const float* __restrict__ m, float* __restrict__ ew,
                          float* __restrict__ zaw, T* __restrict__ eaw, int H, int W) {
+  constexpr int kWarps = smow::kScatterThreads / 32;
+  __shared__ smow::ScatterSmem<C> sm;
+  __shared__ float part[kWarps][C];
   const int f = blockIdx.y;
   const int P = H * W;
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  float e[C];
+  const smow::TileGeom<C> tg(blockIdx.x, H, W);
+  const float2* gridf = reinterpret_cast<const float2*>(grid) + (size_t)f * P;
+  const T* af = a + (size_t)f * P * C;
+  float z[C];                   // the thread's share of zaw
 #pragma unroll
-  for (int c = 0; c < C; ++c) e[c] = 0.f;
-
-  if (p < P) {
-    const float2 g = __ldg(reinterpret_cast<const float2*>(grid) + (size_t)f * P + p);
-    const smow::Corners cr = smow::bilinear_corners(g, H, W);
-    float aw[C];
-    smow::gather_lerp<T, C>(a + (size_t)f * P * C, cr, aw);
+  for (int c = 0; c < C; ++c) z[c] = 0.f;
+  smow::Box box;
 #pragma unroll
-    for (int c = 0; c < C; ++c) e[c] = expf(aw[c] - __ldg(m + f * C + c));
+  for (int i = 0; i < smow::ScatterSmem<C>::kSlots; ++i) {
+    const int slot = i * smow::kScatterThreads + threadIdx.x;
+    const int p = tg.pixel(slot, W);
+    if (p < 0) {
+      smow::note_empty(sm, slot);
+      continue;
+    }
+    const smow::Corners cr = smow::bilinear_corners(__ldg(gridf + p), H, W);
+    float e[C];
+    smow::gather_lerp<T, C>(af, cr, e);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      e[c] = expf(e[c] - __ldg(m + f * C + c));
+      z[c] += e[c];
+    }
     if (kResidual) smow::store_from_f32<T, C>(eaw + ((size_t)f * P + p) * C, e);
-    smow::scatter_lerp<C>(ew + (size_t)f * P * C, cr, e);
+    smow::stage_row(sm, slot, e);
+    smow::note_corners(sm, slot, cr, W, box);
   }
-
-  __shared__ float part[kThreads / 32][C];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const float s = smow::warp_sum(e[c]);
+    const float s = smow::warp_sum(z[c]);
     if (lane == 0) part[warp][c] = s;
   }
-  __syncthreads();
+  // its first barrier also publishes the warps' parts of zaw
+  smow::scatter_tile(sm, box, ew + (size_t)f * P * C, W);
   if (threadIdx.x < C) {
     float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < kThreads / 32; ++i) s += part[i][threadIdx.x];
+    for (int k = 0; k < kWarps; ++k) s += part[k][threadIdx.x];
     atomicAdd(zaw + f * C + threadIdx.x, s);
   }
 }
@@ -153,8 +179,8 @@ cudaError_t launch_bwd(const void* a, const void* grid, const void* m, const voi
 template <typename T, int C, bool kResidual>
 cudaError_t launch(const void* a, const void* grid, const void* m, void* ew, void* zaw,
                    void* eaw, int frames, int H, int W, cudaStream_t stream) {
-  const dim3 blocks((H * W + kThreads - 1) / kThreads, frames);
-  token_scatter_fwd_kernel<T, C, kResidual><<<blocks, kThreads, 0, stream>>>(
+  const dim3 blocks(smow::TileGeom<C>::count(H, W), frames);
+  token_scatter_fwd_kernel<T, C, kResidual><<<blocks, smow::kScatterThreads, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const float*>(grid),
       static_cast<const float*>(m), static_cast<float*>(ew), static_cast<float*>(zaw),
       static_cast<T*>(eaw), H, W);
@@ -165,7 +191,8 @@ template <bool kResidual>
 cudaError_t dispatch(const void* a, const void* grid, const void* m, void* ew, void* zaw,
                      void* eaw, int frames, int H, int W, int C, int is_bf16,
                      cudaStream_t s) {
-  if (frames <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
+  if (frames <= 0 || H <= 0 || W <= 0 || H > smow::kCoordBits || W > smow::kCoordBits)
+    return cudaErrorInvalidValue;
   if (C == 8)
     return is_bf16 ? launch<__nv_bfloat16, 8, kResidual>(a, grid, m, ew, zaw, eaw, frames, H, W, s)
                    : launch<float, 8, kResidual>(a, grid, m, ew, zaw, eaw, frames, H, W, s);

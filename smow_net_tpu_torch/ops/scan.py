@@ -73,8 +73,8 @@ N_STATE = 16        # d_state built into the kernels (kN in csrc/selective_scan.
 CKPT_CHUNK = 16     # I-ckpt's checkpoint interval (kChunk)
 # seg_count's unit of work: 16 channels of one segment row. The forward and
 # reverse sweeps run blocks of 32 channels, 4 warps each (kBlockChannels in
-# csrc/scan_common.cuh), so where Cg is a multiple of 32 a unit is 2 of
-# their warps; the adjoint carry's one-warp blocks hold 16 channels.
+# csrc/scan_common.cuh; the carry and the adjoint carry are modes of the
+# forward sweep), so where Cg is a multiple of 32 a unit is 2 of their warps.
 BLOCK_CHANNELS = 16
 BWD_BLOCK_CHANNELS = 32     # channels per I-bwd block: one dB/dC partial each (kBlockChannels)
 _PLAIN_CHUNK = 256
@@ -397,12 +397,13 @@ def _occupancy(entry: str, *args) -> tuple:
     return warps.value, smem.value
 
 
-FWD_MODES = ("fwd", "ckpt", "carry")    # scan_fwd_kernel's modes (kModeFwd, kModeCkpt, kModeCarry)
+# scan_fwd_kernel's modes (kModeFwd, kModeCkpt, kModeCarry, kModeAdj)
+FWD_MODES = ("fwd", "ckpt", "carry", "adjcarry")
 
 
 def fwd_occupancy(mode: str, flat: bool, bf16: bool) -> tuple:
-    """The forward sweep's (I-fwd, I-ckpt or the carry: `mode` of FWD_MODES)
-    resident warps per SM on the current card
+    """The forward sweep's (I-fwd, I-ckpt, the carry or the adjoint carry:
+    `mode` of FWD_MODES) resident warps per SM on the current card
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and its shared memory
     per block in bytes, for the layout and dtype."""
     return _occupancy("selective_scan_fwd_occupancy", FWD_MODES.index(mode), int(flat), int(bf16))
@@ -426,8 +427,9 @@ def scan_carry(a: _Args, S: int):
 
 
 def scan_adjcarry(a: _Args, gy: torch.Tensor, S: int) -> torch.Tensor:
-    """Kernel H-seg adjcarry: each segment row's adjoint at its first step
-    from zero incoming, (rows*S, N, Cg) fp32."""
+    """Kernel H-seg adjcarry (the forward sweep's kernel walked backwards):
+    each segment row's adjoint at its first step from zero incoming,
+    (rows*S, N, Cg) fp32."""
     dy = gy.to(a.u.dtype).contiguous()
     gout = a.states(S)
     _kernels.call("selective_scan_adjcarry", a.dt.data_ptr(), a.Cm.data_ptr(), dy.data_ptr(),

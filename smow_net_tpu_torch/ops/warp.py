@@ -50,9 +50,14 @@ __all__ = ["grid_sample", "grid_sample_plain", "grid_sample_transpose",
            "token_scatter_bwd", "token_scatter_bwd_plain",
            "grid_sample_t_vjp", "grid_sample_t_vjp_plain", "grid_sample_bwd",
            "grid_sample_bwd_plain", "flow_warp", "flow_warp_transpose",
-           "token_softmax_scatter"]
+           "token_softmax_scatter", "tile_scatter_branches"]
 
 PADDING_MODES = ("border", "zeros")
+# csrc/tile_scatter.cuh (kernels B, A-bwd, D and E): the (TH, TW) tile of
+# grid pixels a block takes at each C (ScatterTile<C>), and the box cells
+# below which a block sorts its corners in shared memory (kWindowCells)
+SCATTER_TILES = {8: (16, 32), 16: (16, 16), 32: (8, 16)}
+SCATTER_WINDOW_CELLS = 2048
 
 
 def _unnormalize(g: torch.Tensor, size: int, align_corners: bool) -> torch.Tensor:
@@ -95,6 +100,31 @@ def corner_rows(grid: torch.Tensor, H: int, W: int, padding_mode: str = "border"
     y0 = torch.nan_to_num(iy0, nan=0.0).clamp(-1.0, H).long()
     x1, y1 = (x0 + 1).clamp(0, W - 1), (y0 + 1).clamp(0, H - 1)
     return y0.clamp(0, H - 1), y1, wy0, wy1, x0.clamp(0, W - 1), x1, wx0, wx1
+
+
+def tile_scatter_branches(grid: torch.Tensor, H: int, W: int, C: int,
+                          padding_mode: str = "border", align_corners: bool = True):
+    """(sorted, direct): how many blocks of the tile scatter, at C channels,
+    into an (H, W) image, sort their tile's corners by the cells of its
+    bounding box and how many add them straight to device memory, as
+    `scatter_tile` chooses: sorted where the box spans fewer than
+    SCATTER_WINDOW_CELLS cells. For logs and tests; the kernels choose for
+    themselves."""
+    TH, TW = SCATTER_TILES[C]
+    y0, y1, _, _, x0, x1, _, _ = corner_rows(grid, H, W, padding_mode, align_corners)
+    Hg, Wg = grid.shape[1:3]
+    pad = (0, -Wg % TW, 0, -Hg % TH)
+
+    def per_tile(t, fill, reduce):
+        t = torch.nn.functional.pad(t.float(), pad, value=fill)
+        t = t.reshape(t.shape[0], t.shape[1] // TH, TH, t.shape[2] // TW, TW)
+        return reduce(reduce(t, dim=4), dim=2)
+
+    big = float(max(H, W) + 1)
+    rows = per_tile(y1, -big, torch.amax) - per_tile(y0, big, torch.amin) + 1
+    cols = per_tile(x1, -big, torch.amax) - per_tile(x0, big, torch.amin) + 1
+    n_sorted = int((rows * cols < SCATTER_WINDOW_CELLS).sum())
+    return n_sorted, rows.numel() - n_sorted
 
 
 def corner_weights_vjp(grid: torch.Tensor, dw: torch.Tensor, H: int, W: int,

@@ -1,10 +1,11 @@
 """The port's hand-written CUDA kernels (D, E, D-bwd, C, A-fwd, A-bwd, B
-in every padding mode and align_corners flag, B's and A-bwd's tile scatter
-on grids that take its sorted path and its direct one, F and F-bwd, the
+in every padding mode and align_corners flag, the tile scatter of B, A-bwd,
+D and E on grids that take its sorted path and its direct one, F and F-bwd, the
 layer at D = 128 and 64; the selective scan's I-fwd, I-ckpt and I-bwd, over the
 grouped layout (I) and the flat one (H), seeded, at any number of rows, the
 forward sweep on misaligned rows;
-H-seg's carry and adjoint carry; the general scan's J; G and G-bwd, the
+H-seg's carry and adjoint carry (ragged, misaligned, bf16, bitwise
+alike twice); the general scan's J; G and G-bwd, the
 layer's attention sublayer, at D = 128 and 512) against their plain
 versions, on the card. Marked
 `cuda`; each test skips when no CUDA device is present (there is no
@@ -55,13 +56,37 @@ def _close_nan(got, want, atol, rtol):
     _close(got[~nan], want[~nan], atol, rtol)
 
 
+def _token_flow(rng, kind, F_, H, W):
+    """A flow field (F, H, W, 2) in pixels: "iid", normal with std 3 (each
+    tile's corners within a box the tile scatter sorts), or "far",
+    uniform over twice the image's size each way (the grid clamps it to the
+    borders: every tile's box spans the whole image, wider than the sorted
+    window at H x W > 2048, so the direct vector reductions run)."""
+    if kind == "iid":
+        return rng.normal(size=(F_, H, W, 2)) * 3
+    return rng.uniform(-2.0, 2.0, size=(F_, H, W, 2)) * np.array([W, H])
+
+
+def _assert_branch(grid, C, kind):
+    """Every tile of the grid takes the branch its flow kind is made for."""
+    H, W = grid.shape[1:3]
+    n_sorted, n_direct = warp.tile_scatter_branches(grid, H, W, C)
+    assert (n_direct if kind == "iid" else n_sorted) == 0, (n_sorted, n_direct)
+
+
+@pytest.mark.parametrize("kind", ["iid", "far"])
 @pytest.mark.parametrize("C", [8, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-def test_token_scatter_kernel_matches_plain(dev, C, dtype):
+def test_token_scatter_kernel_matches_plain(dev, C, dtype, kind):
+    """Kernel D, whose blocks gather a tile of grid pixels and scatter it
+    through the tile scatter: on an i.i.d. flow at (4, 24, 64) (the sorted
+    branch) and a far-scattered one at (4, 48, 64) (the direct branch)."""
     rng = np.random.default_rng(C)
-    a = torch.from_numpy(rng.normal(size=(4, 24, 64, C)).astype(np.float32)).to(dev, dtype)
-    flow = torch.from_numpy((rng.normal(size=(4, 24, 64, 2)) * 3).astype(np.float32)).to(dev)
-    grid = warp.flow_grid(flow, 24, 64)
+    shape = (4, 24, 64) if kind == "iid" else (4, 48, 64)
+    a = torch.from_numpy(rng.normal(size=shape + (C,)).astype(np.float32)).to(dev, dtype)
+    flow = torch.from_numpy(_token_flow(rng, kind, *shape).astype(np.float32)).to(dev)
+    grid = warp.flow_grid(flow, *shape[1:])
+    _assert_branch(grid, C, kind)
     m = a.amax(dim=(1, 2)).float()
     before = _kernels.launches["token_scatter_fwd"]
     ew, zaw = warp.token_scatter(a, grid, m)
@@ -160,20 +185,24 @@ def test_xattn_layer_kernel_matches_plain(dev, use_perm, dtype):
     _close(out, want, 1e-4, 1e-5 if dtype == torch.float32 else BF16_REL)
 
 
-def _token_inputs(dev, C, dtype, seed, shape=(4, 24, 64)):
+def _token_inputs(dev, C, dtype, seed, shape=(4, 24, 64), kind="iid"):
     rng = np.random.default_rng(seed)
     F_, H, W = shape
     a = torch.from_numpy(rng.normal(size=(F_, H, W, C)).astype(np.float32)).to(dev, dtype)
-    flow = torch.from_numpy((rng.normal(size=(F_, H, W, 2)) * 3).astype(np.float32)).to(dev)
+    flow = torch.from_numpy(_token_flow(rng, kind, F_, H, W).astype(np.float32)).to(dev)
     other = torch.from_numpy(rng.normal(size=(F_, H, W, C)).astype(np.float32)).to(dev, dtype)
     return a, warp.flow_grid(flow, H, W), other
 
 
+@pytest.mark.parametrize("kind", ["iid", "far"])
 @pytest.mark.parametrize("C", [8, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-def test_token_scatter_residual_kernel_matches_plain(dev, C, dtype):
-    """Kernel E: kernel D plus the eaw residual in a's dtype."""
-    a, grid, _ = _token_inputs(dev, C, dtype, 10 + C)
+def test_token_scatter_residual_kernel_matches_plain(dev, C, dtype, kind):
+    """Kernel E: kernel D plus the eaw residual in a's dtype, on the flows
+    of `test_token_scatter_kernel_matches_plain`."""
+    shape = (4, 24, 64) if kind == "iid" else (4, 48, 64)
+    a, grid, _ = _token_inputs(dev, C, dtype, 10 + C, shape, kind)
+    _assert_branch(grid, C, kind)
     m = a.amax(dim=(1, 2)).float()
     before = _kernels.launches["token_scatter_fwd_eaw"]
     got = warp.token_scatter(a, grid, m, residual=True)
@@ -833,27 +862,43 @@ def test_flat_scan_kernels_match_plain(dev, B, L, G, Cg, dtype):
         _close(g, w, 1e-6, 1e-4 if fp32 else BF16_REL)
 
 
+# "even": 4 segments of 64 steps; "ragged": 4 of 50 (a 2-step last chunk,
+# the first the adjoint carry walks); "misaligned": 4 of 50 with u, delta,
+# B, C and dy one element past a 16-byte boundary. Cg = 40 leaves an idle
+# tail of a 32-channel block in each.
+@pytest.mark.parametrize("case", ["even", "ragged", "misaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("flat", [True, False], ids=["flat", "grouped"])
-def test_seg_carry_and_adjcarry_kernels_match_plain(dev, flat):
+def test_seg_carry_and_adjcarry_kernels_match_plain(dev, flat, dtype, case):
     """H-seg's carry (final state and dt sum of each segment row from zero)
     and adjoint carry (the adjoint at each segment row's first step from
-    zero) against their plain versions, fp32, 4 segments of 64 steps."""
-    args = _flat_inputs(dev, 2, 256, 2, 40, 32)
+    zero), both modes of the forward sweep, against their plain versions on
+    the same values in fp32: the fp32 outputs to 1e-5 of their largest
+    element, in both dtypes."""
+    L = 256 if case == "even" else 200
+    args = _flat_inputs(dev, 2, L, 2, 40, 32, dtype)
     if not flat:                        # the same values in the grouped layout
-        args = [args[0].reshape(2, 256, 2, 40).transpose(1, 2),
-                args[1].reshape(2, 256, 2, 40).transpose(1, 2), args[2],
-                args[3].transpose(1, 2), args[4].transpose(1, 2), args[5], args[6]]
+        args = [args[0].reshape(2, L, 2, 40).transpose(1, 2).contiguous(),
+                args[1].reshape(2, L, 2, 40).transpose(1, 2).contiguous(), args[2],
+                args[3].transpose(1, 2).contiguous(), args[4].transpose(1, 2).contiguous(),
+                args[5], args[6]]
+    gy = torch.randn(args[0].shape, device=dev,
+                     generator=torch.Generator(dev).manual_seed(33)).to(dtype)
+    if case == "misaligned":
+        args = [_misaligned(t) if i in (0, 1, 3, 4) else t for i, t in enumerate(args)]
+        gy = _misaligned(gy)
+        assert args[0].data_ptr() % 16 != 0 and gy.data_ptr() % 16 != 0
     a = scan._Args(*args, flat=flat)
-    gy = torch.randn(a.u.shape, device=dev, generator=torch.Generator(dev).manual_seed(33))
     before = {n: _kernels.launches[n] for n in SEG}
     hend, csum = scan.scan_carry(a, 4)
     gloc = scan.scan_adjcarry(a, gy, 4)
     torch.cuda.synchronize()
     assert all(_kernels.launches[n] == c + 1 for n, c in before.items())
-    hend_p, csum_p = scan.scan_carry_plain(a, 4)
+    ref = _as_fp32(a)
+    hend_p, csum_p = scan.scan_carry_plain(ref, 4)
     _close(hend, hend_p, 1e-6, 1e-5)
     _close(csum, csum_p, 1e-6, 1e-5)
-    _close(gloc, scan.scan_adjcarry_plain(a, gy, 4), 1e-6, 1e-5)
+    _close(gloc, scan.scan_adjcarry_plain(ref, gy.float(), 4), 1e-6, 1e-5)
 
 
 def _seeded_args(dev, flat, dtype, Cg, L, seed):
@@ -964,20 +1009,23 @@ def test_fwd_sweep_on_misaligned_rows_matches_plain(dev, case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("flat", [True, False], ids=["flat", "grouped"])
 def test_fwd_sweep_is_deterministic(dev, flat, dtype):
-    """I-fwd's y and I-ckpt's states bitwise equal in two runs on the same
-    seeded inputs (Cg = 72, 4 segment rows of 100 steps)."""
+    """I-fwd's y, I-ckpt's states and the adjoint carry's adjoints bitwise
+    equal in two runs on the same seeded inputs (Cg = 72, 4 segment rows of
+    100 steps)."""
     a = _seeded_args(dev, flat, dtype, 72, 400, 54)
-    h0 = torch.randn(a.rows * 4, 16, 72, device=dev, generator=torch.Generator(dev).manual_seed(55))
-    first = scan._scan_fwd(a, 4, h0), scan._scan_ckpt(a, 4, h0)
-    second = scan._scan_fwd(a, 4, h0), scan._scan_ckpt(a, 4, h0)
+    g = torch.Generator(dev).manual_seed(55)
+    h0 = torch.randn(a.rows * 4, 16, 72, device=dev, generator=g)
+    gy = torch.randn(a.u.shape, device=dev, generator=g).to(dtype)
+    first = scan._scan_fwd(a, 4, h0), scan._scan_ckpt(a, 4, h0), scan.scan_adjcarry(a, gy, 4)
+    second = scan._scan_fwd(a, 4, h0), scan._scan_ckpt(a, 4, h0), scan.scan_adjcarry(a, gy, 4)
     torch.cuda.synchronize()
     for x, y in zip(first, second):
         assert torch.equal(x, y)
 
 
 def test_fwd_sweep_holds_32_warps_per_sm(dev):
-    """The forward sweep's design residency: in every mode, layout and
-    dtype, 8 blocks of 4 warps per SM (at most 64 registers a thread by its
+    """The forward sweep's design residency: in every mode (the adjoint
+    carry's included), layout and dtype, 8 blocks of 4 warps per SM (at most 64 registers a thread by its
     launch bounds) and under 48 KB of static shared memory a block."""
     for mode in scan.FWD_MODES:
         for flat in (False, True):

@@ -194,6 +194,50 @@ def test_carry_and_adjcarry_match_jax_kernels():
     assert _rel(gloc.numpy(), gloc_j) <= 1e-5
 
 
+def _card_adjcarry(a, gy, S):
+    """The card's adjoint carry (`scan_fwd_kernel` in kModeAdj,
+    csrc/selective_scan.cu) written out in torch: each segment row's 16-step
+    chunks walked last to first, the ragged last chunk first, the steps of a
+    chunk last to first, g = exp2(dt' A log2 e) g + C dy with dt' the dt of
+    the step after, carried from step to step and across the chunk boundary
+    (0 before the first step walked, where g is 0)."""
+    A, _, bias = a.seg_params(S)
+    dt = scan.softplus(a.seg(a.dt, S).float() + bias)          # (B, G*S, K, Cg)
+    Cm, dy = a.seg(a.Cm, S).float(), a.seg(gy, S).float()
+    a2 = A * 1.4426950408889634                                 # (G*S, Cg, N)
+    K, chunk = dt.shape[2], scan.CKPT_CHUNK
+    g = torch.zeros(dt.shape[:2] + a2.shape[1:])
+    dt_next = torch.zeros(dt.shape[:2] + dt.shape[3:])
+    for j in reversed(range(-(-K // chunk))):
+        for t in reversed(range(j * chunk, min(K, (j + 1) * chunk))):
+            g = torch.exp2(dt_next[..., None] * a2) * g + dy[:, :, t, :, None] * Cm[:, :, t, None]
+            dt_next = dt[:, :, t]
+    return a.from_rows(g)
+
+
+@pytest.mark.parametrize("S", [1, 2])
+def test_card_adjcarry_recurrence_matches_plain_and_jax(S):
+    """The adjoint carry's reformulation on the card (`_card_adjcarry`)
+    against `scan_adjcarry_plain` and JAX's `_adjcarry_core` in interpret
+    mode, on S segments of 40 steps (a ragged 8-step chunk walked first),
+    fp32, to 1e-5 of the largest element."""
+    inp = _inputs(44 + S, L=40 * S)
+    gy = np.random.default_rng(46 + S).normal(size=inp["u"].shape).astype(np.float32)
+    args = [jnp.asarray(inp[k]) for k in ORDER]
+    _, dt2, _, C2, A2, (B, L, Dch, G, Cg, _), regroup = sf._regrouped(
+        args[0], args[1], args[2], args[3], args[4], args[6])
+    K, rows = L // S, B * G * S
+    seg = lambda t: t.reshape(rows, K, t.shape[-1])
+    A_seg = jnp.repeat(sf._expand_rows(A2, G, B * G), S, axis=0)
+    gloc_j = jax.jit(lambda: sf._adjcarry_core(seg(dt2), seg(C2), seg(regroup(jnp.asarray(gy))),
+                                               A_seg, (rows, K, Cg, rows, N), True, True))()
+    a = scan._Args(*_torch(inp), flat=True)
+    got = _card_adjcarry(a, torch.from_numpy(gy), S)
+    assert got.shape == (rows, N, Cg)
+    assert _rel(got.numpy(), scan.scan_adjcarry_plain(a, torch.from_numpy(gy), S).numpy()) <= 1e-5
+    assert _rel(got.numpy(), gloc_j) <= 1e-5
+
+
 def test_carries_over_several_plain_chunks():
     """The plain carry and adjoint carry when a segment spans several of
     the plain scan's chunks (2 segments of 300 steps: 256 + 44), against a

@@ -4,6 +4,7 @@
     python tools/torch_chip_phases.py --tree PATH 3b # the checkout at PATH
     python tools/torch_chip_phases.py --tree PATH fwd bwd
     python tools/torch_chip_phases.py --tree PATH 4 4b layer
+    python tools/torch_chip_phases.py --tree PATH adjcarry scatter
 
 Builds the kernels of the checkout it runs from (or of --tree), sets the
 fp32 comparisons' flags as chip_smoke.py does (TF32 off) and runs the named
@@ -38,6 +39,19 @@ F-bwd through `xattn._kernel_bwd`, each as the wrapper (CUDA events over 20
 calls) and as the kernel alone (`launch_ms`, CUDA events around each
 launch, over 20 calls).
 
+`adjcarry` times H-seg's adjoint carry (`scan.scan_adjcarry`) and, beside
+it, the carry (`scan.scan_carry`, the same sweep forwards) at (64 rows,
+65536, 32), G = 2, on the tree's shipped S (`scan.seg_count`), bf16, on
+inputs made on the card from a seed: the wrapper (CUDA events over 5
+calls) and the kernel alone (`launch_ms`, over 5 calls).
+
+`scatter` times kernels D and E (`warp.token_scatter`, without and with
+the residual) and, beside them, B (`warp.grid_sample_transpose`, the same
+tile scatter) at (32, 128, 128, 8) bf16 on an i.i.d. flow of std 3 pixels
+(chip_smoke.py phase 3's), made on the card from a seed: the wrapper from
+a CUDA graph of 20 calls (`graph_ms`; its zeroed accumulators and casts
+included) and the kernel alone (`kernel_only_ms`, the profiler).
+
 For an A/B of two trees on one card, call it once per tree in turns
 (parent, change, change, parent).
 """
@@ -51,7 +65,7 @@ import sys
 import time
 
 PHASES = ["3", "3b", "3c", "3d", "3e", "3f", "3g", "4", "4b", "13", "14", "19", "20", "fwd",
-          "bwd", "layer"]
+          "bwd", "layer", "adjcarry", "scatter"]
 # the sweeps each timing mode takes
 SWEEPS = {"fwd": ("I-fwd", "I-ckpt", "H-fwd", "H-ckpt", "carry"), "bwd": ("I-bwd", "H-bwd")}
 
@@ -167,6 +181,68 @@ def layer_times(dev) -> dict:
     return out
 
 
+def adjcarry_times(dev) -> dict:
+    """The adjoint carry and the carry at (64, 65536, 32) on the shipped S,
+    bf16: the wrapper and the kernel alone (see the module's docstring)."""
+    import torch
+
+    from smow_net_tpu_torch.ops import scan
+
+    cs = own_chip_smoke()
+    gen = torch.Generator(dev).manual_seed(92)
+    B, L, G, Cg = 32, 65536, 2, 32
+
+    def rand(*shape):
+        return torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+
+    A = -torch.exp(torch.log(torch.arange(1, 17, device=dev, dtype=torch.float32))
+                   + 0.1 * torch.randn(G * Cg, 16, device=dev, generator=gen))
+    lo, hi = torch.log(torch.tensor([1e-3, 0.1]))
+    bias = lo + (hi - lo) * torch.rand(G * Cg, device=dev, generator=gen)
+    a = scan._Args(rand(B, L, G * Cg), rand(B, L, G * Cg), A, rand(B, L, G, 16),
+                   rand(B, L, G, 16), torch.ones(G * Cg, device=dev), bias, flat=True)
+    gy = rand(B, L, G * Cg)
+    S = scan.seg_count(a.rows, L, Cg)
+    out = {}
+    for name, fn, entry in (("adjcarry", lambda: scan.scan_adjcarry(a, gy, S),
+                             "selective_scan_adjcarry"),
+                            ("carry", lambda: scan.scan_carry(a, S), "selective_scan_carry")):
+        t = cs.cuda_ms(fn, iters=5, warmup=1)
+        tk = cs.launch_ms(fn, entry, iters=5)
+        print(f"  {name} ({a.rows} rows, {L}, {Cg}) S={S}: wrapper {t:.4f} ms, kernel {tk:.4f} "
+              "ms", flush=True)
+        out[name], out[name + " kernel"] = t, tk
+    return out
+
+
+def scatter_times(dev) -> dict:
+    """Kernels D and E, and B beside them, at (32, 128, 128, 8) bf16: the
+    wrapper from a CUDA graph and the kernel alone (see the module's
+    docstring)."""
+    import torch
+
+    from smow_net_tpu_torch.ops import warp
+
+    cs = own_chip_smoke()
+    gen = torch.Generator(dev).manual_seed(93)
+    F_, H, W, C = 32, 128, 128, 8
+    a = (2.0 * torch.randn(F_, H, W, C, device=dev, generator=gen)).to(torch.bfloat16)
+    grid = warp.flow_grid(3.0 * torch.randn(F_, H, W, 2, device=dev, generator=gen), H, W)
+    m = a.amax(dim=(1, 2)).float()
+    out = {}
+    for name, fn, kernel in (("D", lambda: warp.token_scatter(a, grid, m), "token_scatter_fwd"),
+                             ("E", lambda: warp.token_scatter(a, grid, m, residual=True),
+                              "token_scatter_fwd"),
+                             ("B", lambda: warp.grid_sample_transpose(a, grid, (H, W)),
+                              "grid_sample_transpose")):
+        t = cs.graph_ms(fn)
+        tk = cs.kernel_only_ms(fn, kernel)
+        print(f"  {name} ({F_}, {H}, {W}, {C}) bf16: wrapper {t:.4f} ms (CUDA graph), kernel "
+              f"{tk:.4f} ms (profiler)", flush=True)
+        out[name], out[name + " kernel"] = t, tk
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=".", help="checkout whose kernels to build and run")
@@ -193,7 +269,8 @@ def main() -> None:
           flush=True)
     if hasattr(cs, "ptxas_lines"):
         layer = {"4", "4b", "layer"} & set(args.phases)
-        for kernel in ("layer_",) if layer else ("scan_fwd_kernel", "scan_bwd_kernel"):
+        for kernel in ("layer_",) if layer else ("scan_fwd_kernel", "scan_bwd_kernel",
+                                                 "token_scatter_fwd_kernel"):
             for line in cs.ptxas_lines(kernel):
                 print("  ptxas " + line, flush=True)
     rate = cs.mufu_per_s()
@@ -207,7 +284,7 @@ def main() -> None:
               "4": lambda d: {D: cs.phase_kernel_f(d, D) for D in (128, 64)},
               "4b": lambda d: {D: cs.phase_kernel_f_bwd(d, D) for D in (128, 64)},
               "fwd": lambda d: sweep_times(d, "fwd"), "bwd": lambda d: sweep_times(d, "bwd"),
-              "layer": layer_times}
+              "layer": layer_times, "adjcarry": adjcarry_times, "scatter": scatter_times}
     for name in args.phases:
         result = phases[name](dev)
         if isinstance(result, dict):
