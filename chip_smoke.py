@@ -26,9 +26,11 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      fp32; then the hybrid, the unfused and the fused chain timed, forward
      plus backward, bf16 at (32, 128, 128, 8), in turns
   3e. kernel D-bwd (`token_scatter_bwd`, the fused chain's backward) vs its
-     plain version at (32, 128, 128, 8) (and a spread > 87, and C = 16),
-     fp32 and bf16, one launch per call; then the fused chain's whole VJP
-     (da, dflow), kernel path (D, D-bwd) vs plain path, fp32
+     plain version at (32, 128, 128, 8) (and a spread > 87, C = 16, and the
+     far flow of 3), fp32 and bf16, one launch per call; its ptxas lines
+     (no spills) and each case's tile-scatter branches; then the fused
+     chain's whole VJP (da, dflow), kernel path (D, D-bwd) vs plain path,
+     fp32
   3f. kernels A-fwd, B, C and A-bwd in the four (padding_mode,
      align_corners) pairs at (32, 128, 128, C), C = 8 and 32, fp32; each
      also on its grid with NaN coordinates (a NaN x, y, both; interior and
@@ -56,7 +58,9 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      ValueError; then its bf16 time at (16, 16384, 128)
   4d. kernel G-bwd (`cross_attn_bwd`) vs torch.autograd.grad of the plain
      version in fp32: all eight input gradients at the cases of 4c (fp32 at
-     1e-4 of each leaf's largest element), one launch per backward; then
+     1e-4 of each leaf's largest element), one launch per backward; the
+     ptxas lines of its bf16 tensor-core body (no spills); two bf16 runs
+     bitwise equal but for dk and dv, and its record bytes per call; then
      its bf16 time. No later phase may launch G or G-bwd: every counter
      reset (phases 5, 7, 8b, 9, 11, 15, 17, 21, 23, 24) and phase 25 check
      it
@@ -362,6 +366,21 @@ def ptxas_lines(kernel: str) -> list:
         elif kernel in current and ("registers" in line or "spill" in line):
             lines.append(f"{current}: {line.strip()}")
     return lines
+
+
+def require_no_spills(kernel: str, count: int, label: str) -> None:
+    """Log the ptxas lines of `kernel` and require `count` instantiations,
+    none spilling (the kernels must have been built by this process)."""
+    from smow_net_tpu_torch.ops import _kernels
+
+    require(_kernels.build_report, "this process built the kernels (ptxas lines to read)")
+    lines = ptxas_lines(kernel)
+    for line in lines:
+        log(f"  ptxas {line}")
+    spills = [line for line in lines if "spill stores" in line]
+    require(len(spills) == count and all("0 bytes spill stores, 0 bytes spill loads" in line
+                                         for line in spills),
+            f"{label} spill nothing: {spills}")
 
 
 def check(label: str, got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float) -> float:
@@ -886,10 +905,12 @@ def phase_token_bwd(dev) -> dict:
     log("phase 3e: kernel D-bwd token_scatter_bwd vs token_scatter_bwd_plain (fp32: da and the "
         "summed weight rows to 1e-4 of the largest element, atomics order and two gathers' "
         "sums; bf16: one bf16 rounding of the plain version in fp32 on the same inputs)")
+    require_no_spills("token_scatter_bwd_kernel", 4, "D-bwd's four instantiations")
     result = {}
 
-    def case(label, shape, spike=False):
-        a, _, grid, r, s = _token_inputs(dev, shape, 35, spike)
+    def case(label, shape, spike=False, far=False):
+        a, _, grid, r, s = _token_inputs(dev, shape, 35, spike, far)
+        log_branches(f"D-bwd {label}", grid, shape[-1], far)
         for dt in (torch.float32, torch.bfloat16):
             x, ew_bar = a.to(dt), r.to(dt)
             m = x.amax(dim=(1, 2)).float()
@@ -922,6 +943,7 @@ def phase_token_bwd(dev) -> dict:
     case("slice", (32, 128, 128, 8))
     case("spread>87", (32, 128, 128, 8), spike=True)
     case("W*C=2048", (32, 128, 128, 16))
+    case("far flow", (32, 128, 128, 8), far=True)
 
     log("  fused token_softmax_scatter VJP, fp32: kernel path (D, D-bwd) vs plain path (bound "
         "1e-4 of the largest element, as phase 3b)")
@@ -1254,7 +1276,7 @@ def _attn_cases(dev):
     D); the ragged N = 1000 at every built width; the logit spread."""
     from smow_net_tpu_torch.ops import xattn
 
-    both, fp32 = (torch.float32, torch.bfloat16), (torch.float32,)
+    both = (torch.float32, torch.bfloat16)
     for D in (128, 64):
         args, gy = _attn_args(dev, 16, 16384, D)
         for kind, perm in (("none", None), ("decoder", _decoder_perm(dev, D)),
@@ -1266,7 +1288,7 @@ def _attn_cases(dev):
             yield f"(2,4096,{D}) perm={kind}", args, gy, perm, both
     for D, _, _ in xattn._ATTN_SHAPES:
         args, gy = _attn_args(dev, 2, 1000, D, seed=D + 1)
-        yield f"ragged (2,1000,{D}) perm=random", args, gy, _random_perm(dev, D), fp32
+        yield f"ragged (2,1000,{D}) perm=random", args, gy, _random_perm(dev, D), both
     args, gy = _attn_args(dev, 2, 4096, 128, seed=10, spread=True)
     yield "spread (2,4096,128) perm=none", args, gy, None, both
 
@@ -1341,6 +1363,7 @@ def phase_kernel_g_bwd(dev) -> tuple:
     log("phase 4d: kernel G-bwd cross_attn_bwd vs autograd of cross_attn_head1_plain "
         "(op path)")
     t0 = time.perf_counter()
+    require_no_spills("cross_attn_bwd_tc", 2, "G-bwd's bf16 body (D = 64, 128)")
     names = ("x", "ln_scale", "ln_bias", "wq", "k", "v", "w_out", "b_out")
     before = {n: _kernels.launches[n] for n in G_KERNELS}
     calls = 0
@@ -1379,6 +1402,13 @@ def phase_kernel_g_bwd(dev) -> tuple:
     result = {"max_abs_err": max(check(f"timed (16,16384,128) bf16 d{n}", g, w, 1e-5, BF16_REL)
                                  for n, g, w in zip(names, got, want))}
     call = lambda: xattn._kernel_bwd(args, gy, scale, None, 1e-5)
+    first, second = call(), call()
+    same = [n for n, a, b in zip(names, first, second) if n in ("k", "v") or torch.equal(a, b)]
+    require(len(same) == len(names), f"G-bwd's dx and records bitwise equal in two runs: only "
+            f"{same}")
+    blocks = xattn.attn_bwd_blocks(16, 16384, 128, torch.bfloat16, dev)
+    log(f"  two runs: dx and every gradient but dk, dv bitwise equal; {blocks} blocks, each "
+        f"writing a record of {19 * 128 * 4} bytes ({blocks * 19 * 128 * 4} bytes a call)")
     result["ms"] = graph_ms(call)
     out = xattn.cross_attn_head1_plain(*args, scale=scale)
     result["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(out, args, gy, retain_graph=True))

@@ -160,17 +160,4 @@ __device__ __forceinline__ void gather_lerp(const T* __restrict__ img, const Cor
   }
 }
 
-// The adjoint of gather_lerp: acc[idx_k, c] += w_k v[c] with fp32 atomics
-// into the C-channel image accumulator `acc`.
-template <int C>
-__device__ __forceinline__ void scatter_lerp(float* __restrict__ acc, const Corners& cr,
-                                             const float (&v)[C]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float w = cr.wy[k / 2] * cr.wx[k % 2];
-#pragma unroll
-    for (int c = 0; c < C; ++c) atomicAdd(acc + (size_t)cr.idx[k] * C + c, w * v[c]);
-  }
-}
-
 }  // namespace smow

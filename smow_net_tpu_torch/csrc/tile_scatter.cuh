@@ -1,13 +1,15 @@
-// The scatter half of kernels B and A-bwd: a tile of grid pixels adds its
-// channel rows, weighted by their bilinear corners' lerp weights, into an
-// fp32 (H, W, C) image accumulator, cell by cell in shared memory, and sends
-// each cell's sum to device memory as 16-byte vector reductions.
+// The scatter half of kernels B, A-bwd, D, E and D-bwd: a tile of grid
+// pixels adds its channel rows, weighted by their bilinear corners' lerp
+// weights, into an fp32 (H, W, C) image accumulator, cell by cell in shared
+// memory, and sends each cell's sum to device memory as 16-byte vector
+// reductions.
 //
 // One block of kScatterThreads threads owns a TH x TW tile of grid pixels of
 // one batch entry (ScatterTile<C>). Each thread first takes its pixels
 // (slots tid, tid + kScatterThreads, ...): it notes their corners
 // (`note_corners`: the corner cells and w_k = wy[k / 2] wx[k % 2], the
-// products scatter_lerp forms) and stages their rows in fp32 (`stage_row`).
+// products the plain scatter forms) and stages their rows in fp32
+// (`stage_row`).
 // Then `scatter_tile`:
 //   1. reduces the corners' rows and columns over the block to a bounding
 //      box in the image;

@@ -33,32 +33,33 @@
 // into da and writes four fp32 weight gradients.
 //
 // Design: the TPU kernel expressed the gather and the scatter as one-hot
-// matmuls because the TPU has no fast gather. D and E are kernel A-fwd's
-// gather followed by kernel B's scatter (tile_scatter.cuh): a block of
-// kScatterThreads takes a ScatterTile<C> tile of grid pixels; for each of
+// matmuls because the TPU has no fast gather. All three kernels are kernel
+// A-fwd's gather followed by kernel B's scatter (tile_scatter.cuh): a block
+// of kScatterThreads takes a ScatterTile<C> tile of grid pixels; for each of
 // its slots a thread computes the four corners and weights exactly as
 // `_corner_indices_weights` does (common.cuh `bilinear_corners`), gathers
 // each corner's channel row with 16-byte loads, lerps and exponentiates in
-// fp32, in E stores eaw with 16-byte vectors, and stages the row and notes
-// the corners in shared memory. `scatter_tile` then sorts the tile's
-// corners by the cells of its bounding box, sums each cell's weighted rows
-// in registers and adds each sum to ew with one 16-byte vector reduction
-// per four channels, or, where the box is too wide (a far-scattered or NaN
-// grid), adds the corner rows straight to ew as vector reductions. With one
-// thread per pixel issuing 4C scalar fp32 atomics (the design this one
-// replaced) the L2's atomic unit was the limit: 0.24 ms at (32, 128, 128,
-// 8), 3% of the byte bound (PERF.md). zaw is summed over a thread's slots,
-// then over the block with warp shuffles, and added with one atomicAdd per
-// block and channel; an empty slot adds nothing. D-bwd keeps the per-pixel
-// design: one thread per grid pixel, scatter_lerp's scalar atomics into da.
-// Atomics make the summation order, and so the last bits of ew, zaw and
-// da, vary from run to run.
+// fp32, in E stores eaw with 16-byte vectors, and stages the row to scatter
+// (D, E: eaw; D-bwd: daw) and notes the corners in shared memory.
+// `scatter_tile` then sorts the tile's corners by the cells of its bounding
+// box, sums each cell's weighted rows in registers and adds each sum to the
+// accumulator (ew, da) with one 16-byte vector reduction per four channels,
+// or, where the box is too wide (a far-scattered or NaN grid), adds the
+// corner rows straight to it as vector reductions. With one thread per
+// pixel issuing 4C scalar fp32 atomics (the design this one replaced) the
+// L2's atomic unit was the limit: 0.24 ms at (32, 128, 128, 8), 3-5% of the
+// byte bound (PERF.md). zaw is summed over a thread's slots, then over the
+// block with warp shuffles, and added with one atomicAdd per block and
+// channel; an empty slot adds nothing. D-bwd gathers the a and ew_bar rows
+// twice: once for aw and dg, and again, from L1, for the weight-gradient
+// dots once daw is known (keeping the eight rows would take 8C registers);
+// consecutive slots are consecutive pixels of a tile row, so its four dw
+// rows are stored coalesced. Atomics make the summation order, and so the
+// last bits of ew, zaw and da, vary from run to run.
 
 #include "tile_scatter.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;   // D-bwd's block
 
 // D and E: one ScatterTile<C> tile of frame blockIdx.y's grid pixels a block.
 template <typename T, int C, bool kResidual>
@@ -114,92 +115,89 @@ token_scatter_fwd_kernel(const T* __restrict__ a, const float* __restrict__ grid
   }
 }
 
-// D-bwd: one thread per grid pixel of frame blockIdx.y.
+// D-bwd: one ScatterTile<C> tile of frame blockIdx.y's grid pixels a block.
 template <typename T, int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(smow::kScatterThreads)
 token_scatter_bwd_kernel(const T* __restrict__ a, const float* __restrict__ grid,
                          const float* __restrict__ m, const float* __restrict__ dz,
                          const T* __restrict__ ew_bar, float* __restrict__ da,
                          float* __restrict__ dw, int H, int W) {
+  __shared__ smow::ScatterSmem<C> sm;
   const int f = blockIdx.y;
   const int P = H * W;
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= P) return;
-  const float2 g = __ldg(reinterpret_cast<const float2*>(grid) + (size_t)f * P + p);
-  const smow::Corners cr = smow::bilinear_corners(g, H, W);
+  const smow::TileGeom<C> tg(blockIdx.x, H, W);
+  const float2* gridf = reinterpret_cast<const float2*>(grid) + (size_t)f * P;
   const T* af = a + (size_t)f * P * C;
   const T* ef = ew_bar + (size_t)f * P * C;
-  float va[4][C], ve[4][C];
+  float* dwf = dw + (size_t)f * 4 * P;
+  smow::Box box;
+#pragma unroll 1
+  for (int i = 0; i < smow::ScatterSmem<C>::kSlots; ++i) {
+    const int slot = i * smow::kScatterThreads + threadIdx.x;
+    const int p = tg.pixel(slot, W);
+    if (p < 0) {
+      smow::note_empty(sm, slot);
+      continue;
+    }
+    const smow::Corners cr = smow::bilinear_corners(__ldg(gridf + p), H, W);
+    float eaw[C], daw[C];
+    smow::gather_lerp<T, C>(af, cr, eaw);   // aw
+    smow::gather_lerp<T, C>(ef, cr, daw);   // dg
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    smow::load_f32<T, C>(af + (size_t)cr.idx[k] * C, va[k]);
-    smow::load_f32<T, C>(ef + (size_t)cr.idx[k] * C, ve[k]);
-  }
-  float eaw[C], daw[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    float aw = 0.f, dg = 0.f;
+    for (int c = 0; c < C; ++c) {
+      eaw[c] = expf(eaw[c] - __ldg(m + f * C + c));
+      daw[c] = (daw[c] + __ldg(dz + f * C + c)) * eaw[c];
+    }
+    float s[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const float w = cr.wy[k / 2] * cr.wx[k % 2];
-      aw += w * va[k][c];
-      dg += w * ve[k][c];
+      float va[C], ve[C];
+      smow::load_f32<T, C>(af + (size_t)cr.idx[k] * C, va);
+      smow::load_f32<T, C>(ef + (size_t)cr.idx[k] * C, ve);
+      float dot = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) dot += daw[c] * va[c] + eaw[c] * ve[c];
+      s[k] = dot;
     }
-    eaw[c] = expf(aw - __ldg(m + f * C + c));
-    daw[c] = (dg + __ldg(dz + f * C + c)) * eaw[c];
+    dwf[p] = cr.wx[0] * s[0] + cr.wx[1] * s[1];           // dwy0
+    dwf[P + p] = cr.wx[0] * s[2] + cr.wx[1] * s[3];       // dwy1
+    dwf[2 * P + p] = cr.wy[0] * s[0] + cr.wy[1] * s[2];   // dwx0
+    dwf[3 * P + p] = cr.wy[0] * s[1] + cr.wy[1] * s[3];   // dwx1
+    smow::stage_row(sm, slot, daw);
+    smow::note_corners(sm, slot, cr, W, box);
   }
-  smow::scatter_lerp<C>(da + (size_t)f * P * C, cr, daw);
-  float s[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    float dot = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) dot += daw[c] * va[k][c] + eaw[c] * ve[k][c];
-    s[k] = dot;
-  }
-  float* dwf = dw + (size_t)f * 4 * P + p;
-  dwf[0] = cr.wx[0] * s[0] + cr.wx[1] * s[1];       // dwy0
-  dwf[P] = cr.wx[0] * s[2] + cr.wx[1] * s[3];       // dwy1
-  dwf[2 * P] = cr.wy[0] * s[0] + cr.wy[1] * s[2];   // dwx0
-  dwf[3 * P] = cr.wy[0] * s[1] + cr.wy[1] * s[3];   // dwx1
+  smow::scatter_tile(sm, box, da + (size_t)f * P * C, W);
 }
 
-template <typename T, int C>
-cudaError_t launch_bwd(const void* a, const void* grid, const void* m, const void* dz,
-                       const void* ew_bar, void* da, void* dw, int frames, int H, int W,
-                       cudaStream_t stream) {
-  const dim3 blocks((H * W + kThreads - 1) / kThreads, frames);
-  token_scatter_bwd_kernel<T, C><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const float*>(grid), static_cast<const float*>(m),
-      static_cast<const float*>(dz), static_cast<const T*>(ew_bar), static_cast<float*>(da),
-      static_cast<float*>(dw), H, W);
-  return cudaGetLastError();
-}
-
-template <typename T, int C, bool kResidual>
-cudaError_t launch(const void* a, const void* grid, const void* m, void* ew, void* zaw,
-                   void* eaw, int frames, int H, int W, cudaStream_t stream) {
-  const dim3 blocks(smow::TileGeom<C>::count(H, W), frames);
-  token_scatter_fwd_kernel<T, C, kResidual><<<blocks, smow::kScatterThreads, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const float*>(grid),
-      static_cast<const float*>(m), static_cast<float*>(ew), static_cast<float*>(zaw),
-      static_cast<T*>(eaw), H, W);
-  return cudaGetLastError();
-}
-
-template <bool kResidual>
-cudaError_t dispatch(const void* a, const void* grid, const void* m, void* ew, void* zaw,
-                     void* eaw, int frames, int H, int W, int C, int is_bf16,
-                     cudaStream_t s) {
+// f(TypeTag<T>, IntTag<C>) for fp32 or bf16 logits and C in {8, 16}, on
+// a (frames, H, W) grid the tile scatter's noted corners can index
+template <typename F>
+cudaError_t dispatch(int frames, int H, int W, int C, int is_bf16, F&& f) {
   if (frames <= 0 || H <= 0 || W <= 0 || H > smow::kCoordBits || W > smow::kCoordBits)
     return cudaErrorInvalidValue;
-  if (C == 8)
-    return is_bf16 ? launch<__nv_bfloat16, 8, kResidual>(a, grid, m, ew, zaw, eaw, frames, H, W, s)
-                   : launch<float, 8, kResidual>(a, grid, m, ew, zaw, eaw, frames, H, W, s);
-  if (C == 16)
-    return is_bf16 ? launch<__nv_bfloat16, 16, kResidual>(a, grid, m, ew, zaw, eaw, frames, H, W, s)
-                   : launch<float, 16, kResidual>(a, grid, m, ew, zaw, eaw, frames, H, W, s);
-  return cudaErrorInvalidValue;
+  auto widths = [&](auto t) -> cudaError_t {
+    if (C == 8) return f(t, smow::IntTag<8>{});
+    if (C == 16) return f(t, smow::IntTag<16>{});
+    return cudaErrorInvalidValue;
+  };
+  return is_bf16 ? widths(smow::TypeTag<__nv_bfloat16>{}) : widths(smow::TypeTag<float>{});
+}
+
+// D (kResidual false) and E: one ScatterTile<C> tile of grid pixels a block
+template <bool kResidual>
+cudaError_t launch_fwd(const void* a, const void* grid, const void* m, void* ew, void* zaw,
+                       void* eaw, int frames, int H, int W, int C, int is_bf16,
+                       cudaStream_t stream) {
+  return dispatch(frames, H, W, C, is_bf16, [&](auto t, auto c) {
+    using T = typename decltype(t)::type;
+    constexpr int kC = decltype(c)::value;
+    const dim3 blocks(smow::TileGeom<kC>::count(H, W), frames);
+    token_scatter_fwd_kernel<T, kC, kResidual><<<blocks, smow::kScatterThreads, 0, stream>>>(
+        static_cast<const T*>(a), static_cast<const float*>(grid),
+        static_cast<const float*>(m), static_cast<float*>(ew), static_cast<float*>(zaw),
+        static_cast<T*>(eaw), H, W);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -210,8 +208,8 @@ cudaError_t dispatch(const void* a, const void* grid, const void* m, void* ew, v
 extern "C" int token_scatter_fwd(const void* a, const void* grid, const void* m, void* ew,
                                  void* zaw, int frames, int H, int W, int C, int is_bf16,
                                  void* stream) {
-  return static_cast<int>(dispatch<false>(a, grid, m, ew, zaw, nullptr, frames, H, W, C,
-                                          is_bf16, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_fwd<false>(a, grid, m, ew, zaw, nullptr, frames, H, W, C,
+                                            is_bf16, static_cast<cudaStream_t>(stream)));
 }
 
 // Kernel E: as token_scatter_fwd, and eaw: (frames, H, W, C) in a's dtype
@@ -219,8 +217,8 @@ extern "C" int token_scatter_fwd(const void* a, const void* grid, const void* m,
 extern "C" int token_scatter_fwd_eaw(const void* a, const void* grid, const void* m,
                                      void* ew, void* zaw, void* eaw, int frames, int H,
                                      int W, int C, int is_bf16, void* stream) {
-  return static_cast<int>(dispatch<true>(a, grid, m, ew, zaw, eaw, frames, H, W, C, is_bf16,
-                                         static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_fwd<true>(a, grid, m, ew, zaw, eaw, frames, H, W, C, is_bf16,
+                                           static_cast<cudaStream_t>(stream)));
 }
 
 // Kernel D-bwd: a (frames, H, W, C) fp32 or bf16 logits, grid, m as above;
@@ -231,17 +229,17 @@ extern "C" int token_scatter_fwd_eaw(const void* a, const void* grid, const void
 extern "C" int token_scatter_bwd(const void* a, const void* grid, const void* m,
                                  const void* dz, const void* ew_bar, void* da, void* dw,
                                  int frames, int H, int W, int C, int is_bf16, void* stream) {
-  if (frames <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (C == 8)
-    err = is_bf16 ? launch_bwd<__nv_bfloat16, 8>(a, grid, m, dz, ew_bar, da, dw, frames, H, W, s)
-                  : launch_bwd<float, 8>(a, grid, m, dz, ew_bar, da, dw, frames, H, W, s);
-  else if (C == 16)
-    err = is_bf16 ? launch_bwd<__nv_bfloat16, 16>(a, grid, m, dz, ew_bar, da, dw, frames, H, W,
-                                                 s)
-                  : launch_bwd<float, 16>(a, grid, m, dz, ew_bar, da, dw, frames, H, W, s);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch(frames, H, W, C, is_bf16, [&](auto t, auto c) {
+    using T = typename decltype(t)::type;
+    constexpr int kC = decltype(c)::value;
+    const dim3 blocks(smow::TileGeom<kC>::count(H, W), frames);
+    token_scatter_bwd_kernel<T, kC><<<blocks, smow::kScatterThreads, 0, s>>>(
+        static_cast<const T*>(a), static_cast<const float*>(grid), static_cast<const float*>(m),
+        static_cast<const float*>(dz), static_cast<const T*>(ew_bar), static_cast<float*>(da),
+        static_cast<float*>(dw), H, W);
+    return cudaGetLastError();
+  }));
 }
 
 extern "C" const char* smow_cuda_error_string(int err) {

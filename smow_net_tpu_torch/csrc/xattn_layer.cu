@@ -484,23 +484,9 @@ layer_fwd_tc(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ ou
 template <int kD>
 cudaError_t resident_blocks(int* blocks) {
   static int cached = 0;
-  if (cached == 0) {
-    cudaError_t err = cudaFuncSetAttribute(layer_fwd_tc<kD>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)Layout<kD>::kBytes);
-    if (err != cudaSuccess) return err;
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-      return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, layer_fwd_tc<kD>, kThreads,
-                                                        Layout<kD>::kBytes);
-    if (err != cudaSuccess) return err;
-    if (per_sm == 0) return cudaErrorInvalidConfiguration;
-    cached = per_sm * sms;
-  }
+  cudaError_t err = tc::resident_blocks(layer_fwd_tc<kD>, Layout<kD>::kBytes, &cached);
   *blocks = cached;
-  return cudaSuccess;
+  return err;
 }
 
 template <int kD>

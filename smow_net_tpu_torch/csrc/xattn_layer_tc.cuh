@@ -1,14 +1,15 @@
-// Tensor-core pieces of the bf16 kernels F (xattn_layer.cu) and F-bwd
-// (xattn_layer_bwd.cu): `mma.sync.m16n8k16` (bf16 operands, fp32
-// accumulation) fed by `ldmatrix`, `cp.async` tile loads, and the hi/lo
-// split that keeps an fp32 operand's product at the precision of the fp32
-// plain version.
+// Tensor-core pieces of the bf16 kernels F (xattn_layer.cu), F-bwd
+// (xattn_layer_bwd.cu) and G-bwd (cross_attn_bwd.cu): `mma.sync.m16n8k16`
+// and `m16n8k8` (bf16 operands, fp32 accumulation) fed by `ldmatrix`,
+// `cp.async` tile loads, and the hi/lo split that keeps an fp32 operand's
+// product at the precision of the fp32 plain version.
 //
 // Fragments (PTX ISA, m16n8k16 .bf16; g = lane / 4, q = lane % 4): A (16 x 16,
 // row) is four .b32 registers, (row g, cols 2q..2q+1), (g + 8, 2q..), (g,
 // 2q + 8..), (g + 8, 2q + 8..); B (16 x 8, col) is two, (k 2q..2q+1, n g) and
 // (k 2q + 8.., n g); the fp32 accumulator C (16 x 8) is four floats, (g, 2q),
-// (g, 2q + 1), (g + 8, 2q), (g + 8, 2q + 1). The accumulators of two
+// (g, 2q + 1), (g + 8, 2q), (g + 8, 2q + 1). m16n8k8 takes the first two
+// A registers and the first B register of that layout. The accumulators of two
 // neighbouring n-tiles, rounded to bf16 pairs, are exactly the A fragment of
 // one 16-deep k-step, so a product's output feeds the next product from
 // registers.
@@ -74,6 +75,15 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += a b (16 x 8 x 8): a is (row g, cols 2q..2q+1), (g + 8, 2q..); b is
+// (k 2q..2q+1, n g)
+__device__ __forceinline__ void mma_k8(float (&c)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
@@ -116,6 +126,27 @@ __device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, int dst_ld,
     const int r = i / chunks, c = (i % chunks) * 8;
     cp_async16(dst + r * dst_ld + c, src + (size_t)r * src_ld + c, true);
   }
+}
+
+// Blocks of `kernel` (kThreads threads and `smem` bytes of dynamic shared
+// memory, which this sets as its maximum) resident in one wave over all SMs
+// of the current device, once per kernel: *cached holds the count.
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, size_t smem, int* cached) {
+  if (*cached == 0) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm == 0) return cudaErrorInvalidConfiguration;
+    *cached = per_sm * sms;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace tc

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "xattn_layer_grid": [_I, _I, _I, _P, _P],
     "cross_attn_fwd": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P],
     "cross_attn_bwd": [_P] * 14 + [_I] * 8 + [ctypes.c_float, _P],
+    "cross_attn_bwd_grid": [_I, _I, _P, _P, _P],
     "selective_scan_fwd": [_P] * 9 + [_I] * 7 + [_P],
     "selective_scan_ckpt": [_P] * 7 + [_I] * 7 + [_P],
     "selective_scan_carry": [_P] * 8 + [_I] * 7 + [_P],

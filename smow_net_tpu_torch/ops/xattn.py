@@ -16,7 +16,9 @@ thread-block clusters keep dw1 and dw2 on chip and write one record per
 block (`layer_bwd_slab`, `layer_grid`). `cross_attn_head1`, the layer's
 attention sublayer alone, is routed the same way: kernels G
 (csrc/cross_attn.cu) and G-bwd (csrc/cross_attn_bwd.cu) on CUDA,
-`cross_attn_head1_plain` on the CPU. Both kernels and both plain versions
+`cross_attn_head1_plain` on the CPU; in bf16 at D <= 128 G-bwd runs its
+products on the tensor cores, warp-owned 16-row tiles, and writes one
+record per block (`attn_bwd_blocks`). Both kernels and both plain versions
 take one softmax shift per (pixel, head), as the reference's softmax does,
 not the Pallas kernels' one per pixel.
 """
@@ -31,8 +33,9 @@ import torch
 
 from . import _kernels
 
-__all__ = ["cross_attn_head1", "cross_attn_head1_plain", "cross_layer_head1",
-           "cross_layer_head1_plain", "layer_bwd_slab", "layer_grid", "layer_norm32"]
+__all__ = ["attn_bwd_blocks", "cross_attn_head1", "cross_attn_head1_plain",
+           "cross_layer_head1", "cross_layer_head1_plain", "layer_bwd_slab", "layer_grid",
+           "layer_norm32"]
 
 
 def _perm_index(perm: torch.Tensor) -> torch.Tensor:
@@ -111,16 +114,17 @@ def _record_layout(D, h):
 
 
 @functools.lru_cache(maxsize=None)
-def _grid(device_index, D, bf16, bwd):
-    """`layer_grid` from the C entry, once per device and kernel."""
-    ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
+def _grid_query(entry, device_index, args, outputs):
+    """The `outputs` int results of the grid entry `entry` (xattn_layer_grid,
+    cross_attn_bwd_grid) for the int arguments `args`, once per device."""
+    out = [ctypes.c_int(0) for _ in range(outputs)]
     lib = _kernels.library()
     with torch.cuda.device(device_index):
-        rc = lib.xattn_layer_grid(D, int(bf16), int(bwd), ctypes.byref(ctas), ctypes.byref(smem))
+        rc = getattr(lib, entry)(*args, *map(ctypes.byref, out))
     if rc != 0:
-        raise RuntimeError(f"xattn_layer_grid: CUDA error {rc} "
+        raise RuntimeError(f"{entry}: CUDA error {rc} "
                            f"({lib.smow_cuda_error_string(rc).decode()})")
-    return ctas.value, smem.value
+    return tuple(v.value for v in out)
 
 
 def layer_grid(D, dtype, bwd, device):
@@ -128,7 +132,7 @@ def layer_grid(D, dtype, bwd, device):
     and dtype: (blocks in one full wave, shared memory a block in bytes).
     F-bwd's bf16 blocks come in clusters of 2D / 64."""
     index = torch.device(device).index or 0
-    return _grid(index, D, dtype == torch.bfloat16, bool(bwd))
+    return _grid_query("xattn_layer_grid", index, (D, int(dtype == torch.bfloat16), int(bwd)), 2)
 
 
 def layer_bwd_slab(B, N, D, dtype, device):
@@ -142,6 +146,17 @@ def layer_bwd_slab(B, N, D, dtype, device):
         return min(tiles, ctas), sum(math.prod(s) for _, s in _slab_layout(D, 8, 2 * D))
     per = 2 * D // _BWD_SLICE
     return min(ctas // per, tiles) * per, sum(math.prod(s) for _, s in _record_layout(D, 8))
+
+
+def attn_bwd_blocks(B, N, D, dtype, device):
+    """Kernel G-bwd's blocks for one call, one record each: one wave of its
+    persistent grid, or fewer where the call has fewer tiles (bf16 at D <=
+    128: one block of 8 warps per SM, a 16-row tile a warp at once; else two
+    blocks per SM, kAttnRows<D> rows a tile)."""
+    index = torch.device(device).index or 0
+    ctas, rows, per = _grid_query("cross_attn_bwd_grid", index,
+                                  (D, int(dtype == torch.bfloat16)), 3)
+    return min(ctas, -(-(B * -(-N // rows)) // per))
 
 
 def _part_layout(D, h):
@@ -250,10 +265,8 @@ def _kernel_bwd(args, gy, scale, perm, eps):
     else:
         hidden, bf16 = [], False
         layout = _part_layout(D, h)
-        # G-bwd writes its row once; two blocks per SM over kAttnRows<D> rows
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        rows = 32 if D >= 256 else 64
-        blocks, alloc = min(B * -(-N // rows), 2 * sms), torch.empty
+        # G-bwd writes its row once
+        blocks, alloc = attn_bwd_blocks(B, N, D, x.dtype, x.device), torch.empty
     sizes = [math.prod(shape) for _, shape in layout]
     slab = alloc(blocks, sum(sizes), dtype=torch.float32, device=x.device)
     dkexp = torch.zeros(B, h, M, dtype=torch.float32, device=x.device)

@@ -1,13 +1,13 @@
 """The port's hand-written CUDA kernels (D, E, D-bwd, C, A-fwd, A-bwd, B
 in every padding mode and align_corners flag, the tile scatter of B, A-bwd,
-D and E on grids that take its sorted path and its direct one, F and F-bwd, the
-layer at D = 128 and 64; the selective scan's I-fwd, I-ckpt and I-bwd, over the
-grouped layout (I) and the flat one (H), seeded, at any number of rows, the
-forward sweep on misaligned rows;
-H-seg's carry and adjoint carry (ragged, misaligned, bf16, bitwise
-alike twice); the general scan's J; G and G-bwd, the
-layer's attention sublayer, at D = 128 and 512) against their plain
-versions, on the card. Marked
+D, E and D-bwd on grids that take its sorted path and its direct one, F and
+F-bwd, the layer at D = 128 and 64; the selective scan's I-fwd, I-ckpt and
+I-bwd, over the grouped layout (I) and the flat one (H), seeded, at any
+number of rows, the forward sweep on misaligned rows; H-seg's carry and
+adjoint carry (ragged, misaligned, bf16, bitwise alike twice); the general
+scan's J; G, the layer's attention sublayer, at D = 128 and 512, and G-bwd
+at every built width, its bf16 tensor-core body bitwise alike twice)
+against their plain versions, on the card. Marked
 `cuda`; each test skips when no CUDA device is present (there is no
 interpret mode for a CUDA kernel). On a GPU machine without JAX,
 skip tests/conftest.py (it configures JAX):
@@ -16,12 +16,13 @@ skip tests/conftest.py (it configures JAX):
 
 Bounds as chip_smoke.py states them: fp32 kernels differ from the fp32
 plain versions only in summation order; bf16 kernels compute in fp32 (F's
-and F-bwd's MLP products on the tensor cores with each fp32 activation
-operand split into bf16 hi + lo, to about 2^-17 of the product) and round
+and F-bwd's MLP products and G-bwd's products on the tensor cores with each
+fp32 activation operand split into bf16 hi + lo, to about 2^-17 of the
+product) and round
 once, so they are held to one bf16 rounding (2^-8 relative) of the fp32
-plain result on the same inputs. F and F-bwd also wrap their persistent
-grids, run bitwise alike twice, spill nothing and hold tensor-core
-instructions."""
+plain result on the same inputs. F, F-bwd and G-bwd's bf16 body also wrap
+their persistent grids, run bitwise alike twice, spill nothing and hold
+tensor-core instructions."""
 
 import numpy as np
 import pytest
@@ -57,13 +58,16 @@ def _close_nan(got, want, atol, rtol):
 
 
 def _token_flow(rng, kind, F_, H, W):
-    """A flow field (F, H, W, 2) in pixels: "iid", normal with std 3 (each
-    tile's corners within a box the tile scatter sorts), or "far",
-    uniform over twice the image's size each way (the grid clamps it to the
-    borders: every tile's box spans the whole image, wider than the sorted
-    window at H x W > 2048, so the direct vector reductions run)."""
+    """A flow field (F, H, W, 2) in pixels: "iid", normal with std 3, or
+    "smooth", an 8x8 field of std 3 upsampled (each tile's corners within a
+    box the tile scatter sorts), or "far", uniform over twice the image's
+    size each way (the grid clamps it to the borders: every tile's box spans
+    the whole image, wider than the sorted window at H x W > 2048, so the
+    direct vector reductions run)."""
     if kind == "iid":
         return rng.normal(size=(F_, H, W, 2)) * 3
+    if kind == "smooth":
+        return smooth_field(rng, F_, H, W, 3.0)
     return rng.uniform(-2.0, 2.0, size=(F_, H, W, 2)) * np.array([W, H])
 
 
@@ -71,7 +75,7 @@ def _assert_branch(grid, C, kind):
     """Every tile of the grid takes the branch its flow kind is made for."""
     H, W = grid.shape[1:3]
     n_sorted, n_direct = warp.tile_scatter_branches(grid, H, W, C)
-    assert (n_direct if kind == "iid" else n_sorted) == 0, (n_sorted, n_direct)
+    assert (n_sorted if kind == "far" else n_direct) == 0, (n_sorted, n_direct)
 
 
 @pytest.mark.parametrize("kind", ["iid", "far"])
@@ -266,12 +270,17 @@ def test_token_softmax_scatter_gradient_kernel_path_matches_plain(dev):
         _close(g, w, 1e-5, 1e-4)
 
 
+@pytest.mark.parametrize("kind", ["iid", "smooth", "far"])
 @pytest.mark.parametrize("C", [8, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-def test_token_scatter_bwd_kernel_matches_plain(dev, C, dtype):
-    """Kernel D-bwd: da to one rounding of its dtype, the fp32 summed
-    weight-gradient rows to 1e-4 relative (two gathers' sums added)."""
-    a, grid, ew_bar = _token_inputs(dev, C, dtype, 50 + C)
+def test_token_scatter_bwd_kernel_matches_plain(dev, C, dtype, kind):
+    """Kernel D-bwd, whose blocks scatter daw through the tile scatter: da
+    to one rounding of its dtype, the fp32 summed weight-gradient rows to
+    1e-4 relative (two gathers' sums added), at (4, 48, 64) on an i.i.d.
+    and a smooth flow (the sorted branch) and a far one (the direct
+    branch)."""
+    a, grid, ew_bar = _token_inputs(dev, C, dtype, 50 + C, (4, 48, 64), kind)
+    _assert_branch(grid, C, kind)
     m = a.amax(dim=(1, 2)).float()
     dz = torch.from_numpy(np.random.default_rng(C).normal(size=(4, C)).astype(np.float32)).to(dev)
     before = _kernels.launches["token_scatter_bwd"]
@@ -434,15 +443,15 @@ def test_xattn_layer_bf16_kernels_are_deterministic(dev, D):
             assert torch.equal(a, b), name
 
 
-def _layer_ptxas():
-    """ptxas's lines (function, registers, spill bytes) for F's and F-bwd's
-    sources, compiled as the build compiles them."""
+def _layer_ptxas(sources=("xattn_layer.cu", "xattn_layer_bwd.cu")):
+    """ptxas's lines (function, registers, spill bytes) for the sources (F's
+    and F-bwd's by default), compiled as the build compiles them."""
     import subprocess
     import tempfile
 
     lines = {}
     with tempfile.TemporaryDirectory() as work:
-        for src in ("xattn_layer.cu", "xattn_layer_bwd.cu"):
+        for src in sources:
             proc = subprocess.run(
                 [_kernels._nvcc(), "-gencode", _kernels.GENCODE, "-std=c++17", "-O3", "-c",
                  "-Xptxas", "-v", "-I", str(_kernels.CSRC), "-o", f"{work}/{src}.o",
@@ -476,16 +485,16 @@ def test_xattn_layer_bf16_build_fits_its_design(dev):
         assert ctas % C == 0 and sms // 2 < ctas <= sms and 0 < smem <= 232448, (D, ctas, smem)
 
 
-def test_xattn_layer_bf16_kernels_run_on_tensor_cores(dev):
-    """The machine code of F's and F-bwd's bf16 kernels holds tensor-core
-    instructions (HMMA or HGMMA in `cuobjdump -sass` of the built library)."""
+def _hmma_counts():
+    """Tensor-core instructions (HMMA or HGMMA) per function in `cuobjdump
+    -sass` of the built library, or None without cuobjdump."""
     import shutil
     import subprocess
     from pathlib import Path
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        pytest.skip("needs cuobjdump (the CUDA toolkit)")
+        return None
     sass = subprocess.run([tool, "-sass", str(_kernels.build())], capture_output=True,
                           text=True, check=True).stdout
     counts, current = {}, ""
@@ -494,6 +503,15 @@ def test_xattn_layer_bf16_kernels_run_on_tensor_cores(dev):
             current = line.split("Function :")[1].strip()
         elif "HMMA" in line or "HGMMA" in line:
             counts[current] = counts.get(current, 0) + 1
+    return counts
+
+
+def test_xattn_layer_bf16_kernels_run_on_tensor_cores(dev):
+    """The machine code of F's and F-bwd's bf16 kernels holds tensor-core
+    instructions (HMMA or HGMMA in `cuobjdump -sass` of the built library)."""
+    counts = _hmma_counts()
+    if counts is None:
+        pytest.skip("needs cuobjdump (the CUDA toolkit)")
     for kernel in ("layer_fwd_tcILi128", "layer_fwd_tcILi64", "layer_bwd_tcILi128",
                    "layer_bwd_tcILi64"):
         assert any(kernel in name and n > 0 for name, n in counts.items()), (kernel, counts)
@@ -649,9 +667,13 @@ def test_token_kernels_on_a_nan_grid_match_plain(dev, C, dtype):
     """D, E and D-bwd (border padding, align_corners) on a flow grid with
     NaN coordinates against their plain versions on the same grid: NaN at
     the same elements, the finite ones as the token kernels' tests hold
-    them."""
-    a, grid, ew_bar = _token_inputs(dev, C, dtype, 80 + C)
+    them. At (4, 48, 64) the tile of the last pixel, whose NaN corners lie
+    at the image's origin, takes the tile scatter's direct branch, the
+    others the sorted one."""
+    a, grid, ew_bar = _token_inputs(dev, C, dtype, 80 + C, (4, 48, 64))
     grid = _with_nans(grid)
+    n_sorted, n_direct = warp.tile_scatter_branches(grid, 48, 64, C)
+    assert n_sorted > 0 and n_direct > 0, (n_sorted, n_direct)
     m = a.amax(dim=(1, 2)).float()
     dz = torch.from_numpy(np.random.default_rng(C).normal(size=(4, C)).astype(np.float32)).to(dev)
     names = ("token_scatter_fwd", "token_scatter_fwd_eaw", "token_scatter_bwd")
@@ -1217,16 +1239,19 @@ def test_cross_attn_kernel_matches_plain(dev, D, use_perm, dtype):
            1e-5 if dtype == torch.float32 else BF16_REL)
 
 
-@pytest.mark.parametrize("D", [128, 512])
+@pytest.mark.parametrize("B,N", [(2, 1000), (3, 16411)], ids=["2x1000", "3x16411"])
+@pytest.mark.parametrize("D", [64, 128, 256, 384, 512])
 @pytest.mark.parametrize("use_perm", [False, True], ids=["no_perm", "perm"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-def test_cross_attn_bwd_kernel_matches_plain(dev, D, use_perm, dtype):
+def test_cross_attn_bwd_kernel_matches_plain(dev, D, use_perm, dtype, B, N):
     """Kernel G-bwd: the 8 input gradients against torch.autograd.grad of
     the plain version in fp32 on the same inputs (fp32: 1e-4 of each
     gradient's largest element, the row sums run in another order; bf16:
-    one rounding), one launch of G and of G-bwd."""
+    one rounding), one launch of G and of G-bwd, at every built width. N is
+    ragged for every tile (16, 32 and 64 rows); at (3, 16411) the bf16 body's
+    warps take several tiles each, across a batch's end."""
     rng = np.random.default_rng(D + 12)
-    args, gy = _attn_inputs(dev, rng, D)
+    args, gy = _attn_inputs(dev, rng, D, B=B, N=N)
     args = [a.to(dtype).requires_grad_() for a in args]
     perm = _random_perm(dev, rng, D) if use_perm else None
     before = {n: _kernels.launches[n] for n in ("cross_attn_fwd", "cross_attn_bwd")}
@@ -1242,6 +1267,59 @@ def test_cross_attn_bwd_kernel_matches_plain(dev, D, use_perm, dtype):
         assert g.dtype == a.dtype and g.shape == a.shape
         _close(g, w, 1e-5 if dtype == torch.bfloat16 else 0.0,
                1e-4 if dtype == torch.float32 else BF16_REL)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_cross_attn_bwd_bf16_kernel_on_a_logit_spread_matches_plain(dev, D):
+    """bf16 G-bwd (the tensor-core body at D = 64 and 128, the first design
+    at 256) as `test_cross_attn_bwd_kernel_matches_plain` holds it, with
+    head 0's keys scaled by 1e4 at (2, 4096, D): its logits lie ~1e3 above
+    the other heads' (chip_smoke.py's spread case), where q must be exact
+    to fp32 for the softmax's gradient to hold the bound (q through bf16 hi
+    + lo failed it)."""
+    rng = np.random.default_rng(D + 15)
+    args, gy = _attn_inputs(dev, rng, D, N=4096)
+    args[4][..., 0] *= 1e4
+    args = [a.to(torch.bfloat16).requires_grad_() for a in args]
+    gy = gy.to(torch.bfloat16)
+    got = torch.autograd.grad(xattn.cross_attn_head1(*args, scale=D ** -0.5), args, gy)
+    ref = [a.detach().float().requires_grad_() for a in args]
+    want = torch.autograd.grad(xattn.cross_attn_head1_plain(*ref, scale=D ** -0.5), ref,
+                               gy.float())
+    for g, w in zip(got, want):
+        _close(g, w, 1e-5, BF16_REL)
+
+
+@pytest.mark.parametrize("D", [128, 64])
+def test_cross_attn_bwd_bf16_kernel_is_deterministic(dev, D):
+    """bf16 G-bwd's dx, and every gradient but dk and dv (added across warps
+    with atomicAdd), bitwise equal in two runs at (4, 16384, D)."""
+    rng = np.random.default_rng(D + 14)
+    args, gy = _attn_inputs(dev, rng, D, B=4, N=16384)
+    args, gy = [a.to(torch.bfloat16) for a in args], gy.to(torch.bfloat16)
+    first = xattn._kernel_bwd(args, gy, D ** -0.5, None, 1e-5)
+    second = xattn._kernel_bwd(args, gy, D ** -0.5, None, 1e-5)
+    for name, a, b in zip(xattn._ARG_NAMES, first, second):
+        if name not in ("k", "v"):
+            assert torch.equal(a, b), name
+
+
+def test_cross_attn_bwd_bf16_build_fits_its_design(dev):
+    """G-bwd's bf16 body (D = 64 and 128) spills nothing, holds tensor-core
+    instructions (HMMA in `cuobjdump -sass`, where the toolkit has it), and
+    one wave holds one block of 8 warps on every SM."""
+    lines = _layer_ptxas(("cross_attn_bwd.cu",))
+    tc = {name: " ".join(text) for name, text in lines.items() if "cross_attn_bwd_tc" in name}
+    assert len(tc) == 2, sorted(lines)
+    for name, joined in tc.items():
+        assert "0 bytes spill stores" in joined and "0 bytes spill loads" in joined, (name, joined)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for D in (128, 64):
+        assert xattn.attn_bwd_blocks(16, 16384, D, torch.bfloat16, dev) == sms
+    counts = _hmma_counts()
+    if counts is not None:
+        for kernel in ("cross_attn_bwd_tcILi128", "cross_attn_bwd_tcILi64"):
+            assert any(kernel in name and n > 0 for name, n in counts.items()), (kernel, counts)
 
 
 def test_cross_attn_raises_on_what_the_kernels_do_not_take(dev):

@@ -1,17 +1,19 @@
 """The rounding contract of the bf16 kernels F and F-bwd
-(csrc/xattn_layer.cu, csrc/xattn_layer_bwd.cu), on the CPU: a plain-torch
-emulation of where they round (weights at bf16 values; the MLP's products
-on bf16 operands with fp32 accumulation, each fp32 activation operand split
-into bf16 hi + lo; everything else in fp32; outputs rounded once to bf16)
-stays within the bounds that the card holds the kernels to against the
-fp32 plain version on the same bf16 inputs: 1e-4 (1e-5 for gradients) +
-2^-8 of the largest element. No JAX; seconds."""
+(csrc/xattn_layer.cu, csrc/xattn_layer_bwd.cu) and G-bwd
+(csrc/cross_attn_bwd.cu), on the CPU: a plain-torch emulation of where they
+round (weights at bf16 values; the products on bf16 operands with fp32
+accumulation, each fp32 activation operand split into bf16 hi + lo;
+everything else in fp32; outputs rounded once to bf16) stays within the
+bounds that the card holds the kernels to against the fp32 plain version on
+the same bf16 inputs: 1e-4 (1e-5 for gradients) + 2^-8 of the largest
+element. No JAX; seconds."""
 
 import numpy as np
 import pytest
 import torch
 
-from smow_net_tpu_torch.ops.xattn import cross_layer_head1_plain, layer_norm32
+from smow_net_tpu_torch.ops.xattn import (cross_attn_head1_plain, cross_layer_head1_plain,
+                                         layer_norm32)
 
 BF16_REL = 2.0 ** -8
 EPS = 1e-5
@@ -94,4 +96,74 @@ def test_bf16_rounding_points_hold_the_kernels_bounds(D):
     want_g = torch.autograd.grad(want, [ref[0], ref[10], ref[12]], gy)
     for name, got, w in zip(("dx", "dw1", "dw2"), grads, want_g):
         err = (got.float() - w).abs().max().item()
+        assert err <= 1e-5 + BF16_REL * w.abs().max().item(), (name, err)
+
+
+def _attn_emulated(args, gy, scale, src):
+    """Kernel G-bwd's eight gradients as its bf16 body (D <= 128) rounds
+    them: q = LN1(xc) wq in fp32; xhat split into hi + lo for xhat^T dq, dq
+    for dxn = dq wq^T and xhat^T dq, o for g^T o; the LayerNorm's and wq's
+    sums from xhat^T dq and sum dq; dx scattered through the permutation
+    (source lanes `src`)."""
+    x, ln_s, ln_b, wq, k, v, w_out, _ = args
+    xc = x[..., src]
+    mu = xc.mean(dim=-1, keepdim=True)
+    rs = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) - mu * mu + EPS)
+    xh = (xc - mu) * rs
+    xh_h, xh_l = _split(xh)
+    q = (xh * ln_s + ln_b) @ wq                                # (B, N, h)
+    kT = (k * scale).transpose(1, 2)[:, None]                  # (B, 1, h, M)
+    vT = v.transpose(1, 2)[:, None]
+    logits = q[..., None] * kT
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    den = e.sum(dim=-1).clamp_min(1e-30)
+    o = (e * vT).sum(dim=-1) / den
+    dov = gy @ w_out.t()
+    dnum, dden = dov / den, -dov * o / den
+    dd = e * (dnum[..., None] * vT + dden[..., None])
+    dq = (dd * kT).sum(dim=-1)
+    dk = (q[..., None] * dd).sum(dim=1).transpose(1, 2) * scale    # (B, M, h)
+    dv = (e * dnum[..., None]).sum(dim=1).transpose(1, 2)
+    dq_h, dq_l = _split(dq)
+    xh2 = xh_h + xh_l
+    dxh = (dq_h @ wq.t() + dq_l @ wq.t()) * ln_s
+    m1, m2 = dxh.mean(dim=-1, keepdim=True), (dxh * xh2).mean(dim=-1, keepdim=True)
+    dx = torch.empty_like(x)
+    dx[..., src] = rs * (dxh - m1 - xh2 * m2) + gy
+    rows = lambda t: t.reshape(-1, t.shape[-1])
+    xq = (rows(xh_h).t() @ rows(dq_h) + rows(xh_h).t() @ rows(dq_l)
+          + rows(xh_l).t() @ rows(dq_h))                         # (D, h)
+    sq = rows(dq).sum(dim=0)
+    o_h, o_l = _split(o)
+    dwo = rows(o_h).t() @ rows(gy) + rows(o_l).t() @ rows(gy)
+    grads = (dx, (wq * xq).sum(dim=1), wq @ sq, ln_s[:, None] * xq + ln_b[:, None] * sq, dk,
+             dv, dwo, rows(gy).sum(dim=0))
+    return [t.to(torch.bfloat16) for t in grads]
+
+
+@pytest.mark.parametrize("case", ["no_perm", "perm", "spread"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_attn_bwd_bf16_rounding_points_hold_the_kernels_bound(D, case):
+    """G-bwd's bf16 rounding points against torch.autograd.grad of
+    `cross_attn_head1_plain` in fp32 on the same bf16 inputs, every one of
+    the eight gradients to 1e-5 + 2^-8 of its largest element (phase 4d's
+    bound); N = 1000 leaves a ragged 16-row tile. "spread" scales head 0's
+    keys by 1e4 at N = 4096, as phase 4d's spread case does: its logits
+    reach ~1e3, where q through bf16 hi + lo (2^-17) fails dln_bias."""
+    args, gy = _inputs(D, N=4096 if case == "spread" else 1000, seed=D + 3)
+    args, scale = args[:8], D ** -0.5
+    use_perm = case == "perm"
+    if case == "spread":
+        args[4][..., 0] *= 1e4
+    rng = np.random.default_rng(D)
+    src = torch.from_numpy(rng.permutation(D)) if use_perm else torch.arange(D)
+    perm = torch.zeros(D, D)
+    perm[src, torch.arange(D)] = 1.0
+    got = _attn_emulated(args, gy, scale, src)
+    ref = [a.clone().requires_grad_() for a in args]
+    want = torch.autograd.grad(
+        cross_attn_head1_plain(*ref, scale=scale, perm=perm if use_perm else None), ref, gy)
+    names = ("dx", "dln_scale", "dln_bias", "dwq", "dk", "dv", "dw_out", "db_out")
+    for name, g, w in zip(names, got, want):
+        err = (g.float() - w).abs().max().item()
         assert err <= 1e-5 + BF16_REL * w.abs().max().item(), (name, err)

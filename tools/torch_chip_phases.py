@@ -5,6 +5,7 @@
     python tools/torch_chip_phases.py --tree PATH fwd bwd
     python tools/torch_chip_phases.py --tree PATH 4 4b layer
     python tools/torch_chip_phases.py --tree PATH adjcarry scatter
+    python tools/torch_chip_phases.py --tree PATH 4c 4d attn
 
 Builds the kernels of the checkout it runs from (or of --tree), sets the
 fp32 comparisons' flags as chip_smoke.py does (TF32 off) and runs the named
@@ -12,7 +13,8 @@ phases: 3 (D), 3b (E, C, A-bwd), 3c (A-fwd, B), 3d (the unfused chain), 3e
 (D-bwd), 3f (the warp modes and NaN grids), 3g (the OFW route), 13 (I-fwd),
 14 (I-ckpt and I-bwd), 19 (kernel H), 20 (H on the shipped segmented
 route, and its A/B), 4 and 4b (F and F-bwd, the decoder layer, at D = 128
-and 64). Each phase holds its kernels against their plain
+and 64), 4c and 4d (G and G-bwd, its attention sublayer, an op path). Each
+phase holds its kernels against their plain
 versions and logs their times, as in the whole script; a phase that
 returns the JSON line's numbers prints them.
 
@@ -46,11 +48,19 @@ inputs made on the card from a seed: the wrapper (CUDA events over 5
 calls) and the kernel alone (`launch_ms`, over 5 calls).
 
 `scatter` times kernels D and E (`warp.token_scatter`, without and with
-the residual) and, beside them, B (`warp.grid_sample_transpose`, the same
-tile scatter) at (32, 128, 128, 8) bf16 on an i.i.d. flow of std 3 pixels
-(chip_smoke.py phase 3's), made on the card from a seed: the wrapper from
-a CUDA graph of 20 calls (`graph_ms`; its zeroed accumulators and casts
-included) and the kernel alone (`kernel_only_ms`, the profiler).
+the residual), D-bwd (`warp.token_scatter_bwd`) and, beside them, B
+(`warp.grid_sample_transpose`, the same tile scatter) at (32, 128, 128, 8)
+bf16 on an i.i.d. flow of std 3 pixels (chip_smoke.py phase 3's), made on
+the card from a seed: the wrapper from a CUDA graph of 20 calls
+(`graph_ms`; its zeroed accumulators and casts included) and the kernel
+alone (`kernel_only_ms`, the profiler).
+
+`attn` times kernels G (`xattn.cross_attn_head1`) and G-bwd
+(`xattn._kernel_bwd`: the kernel, its allocations and the sum of its
+per-block records) at (16, 16384, D) bf16, D = 128 (phases 4c and 4d's
+timed shape) and 64, on inputs made on the card from a seed: the wrapper
+from a CUDA graph of 20 calls (`graph_ms`) and the kernel alone
+(`launch_ms`, CUDA events around each launch, over 20 calls).
 
 For an A/B of two trees on one card, call it once per tree in turns
 (parent, change, change, parent).
@@ -64,8 +74,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ["3", "3b", "3c", "3d", "3e", "3f", "3g", "4", "4b", "13", "14", "19", "20", "fwd",
-          "bwd", "layer", "adjcarry", "scatter"]
+PHASES = ["3", "3b", "3c", "3d", "3e", "3f", "3g", "4", "4b", "4c", "4d", "13", "14", "19",
+          "20", "fwd", "bwd", "layer", "adjcarry", "scatter", "attn"]
 # the sweeps each timing mode takes
 SWEEPS = {"fwd": ("I-fwd", "I-ckpt", "H-fwd", "H-ckpt", "carry"), "bwd": ("I-bwd", "H-bwd")}
 
@@ -229,10 +239,14 @@ def scatter_times(dev) -> dict:
     a = (2.0 * torch.randn(F_, H, W, C, device=dev, generator=gen)).to(torch.bfloat16)
     grid = warp.flow_grid(3.0 * torch.randn(F_, H, W, 2, device=dev, generator=gen), H, W)
     m = a.amax(dim=(1, 2)).float()
+    ew_bar = torch.randn(F_, H, W, C, device=dev, generator=gen).to(torch.bfloat16)
+    dz = torch.randn(F_, C, device=dev, generator=gen)
     out = {}
     for name, fn, kernel in (("D", lambda: warp.token_scatter(a, grid, m), "token_scatter_fwd"),
                              ("E", lambda: warp.token_scatter(a, grid, m, residual=True),
                               "token_scatter_fwd"),
+                             ("D-bwd", lambda: warp.token_scatter_bwd(a, grid, m, ew_bar, dz),
+                              "token_scatter_bwd"),
                              ("B", lambda: warp.grid_sample_transpose(a, grid, (H, W)),
                               "grid_sample_transpose")):
         t = cs.graph_ms(fn)
@@ -240,6 +254,37 @@ def scatter_times(dev) -> dict:
         print(f"  {name} ({F_}, {H}, {W}, {C}) bf16: wrapper {t:.4f} ms (CUDA graph), kernel "
               f"{tk:.4f} ms (profiler)", flush=True)
         out[name], out[name + " kernel"] = t, tk
+    return out
+
+
+def attn_times(dev) -> dict:
+    """Kernels G and G-bwd, bf16, at (16, 16384, D), D = 128 and 64: the
+    wrapper and the kernel alone (see the module's docstring)."""
+    import torch
+
+    from smow_net_tpu_torch.ops import xattn
+
+    cs = own_chip_smoke()
+    gen = torch.Generator(dev).manual_seed(94)
+    out = {}
+    for D in (128, 64):
+        def rand(*shape, scale=1.0, off=0.0):
+            return (torch.randn(shape, device=dev, generator=gen) * scale + off).to(torch.bfloat16)
+
+        args = [rand(16, 16384, D), rand(D, scale=0.2, off=1.0), rand(D, scale=0.1),
+                rand(D, 8, scale=0.1), rand(16, 8, 8), rand(16, 8, 8), rand(8, D, scale=0.1),
+                rand(D, scale=0.1)]
+        gy, scale = rand(16, 16384, D), D ** -0.5
+        calls = {f"G D={D}": (lambda: xattn.cross_attn_head1(*args, scale=scale),
+                              "cross_attn_fwd"),
+                 f"G-bwd D={D}": (lambda: xattn._kernel_bwd(args, gy, scale, None, 1e-5),
+                                  "cross_attn_bwd")}
+        for name, (fn, entry) in calls.items():
+            t = cs.graph_ms(fn)
+            tk = cs.launch_ms(fn, entry, iters=20)
+            print(f"  {name}: wrapper {t:.4f} ms (CUDA graph), kernel {tk:.4f} ms", flush=True)
+            out[name], out[name + " kernel"] = t, tk
+        del args, gy
     return out
 
 
@@ -268,9 +313,15 @@ def main() -> None:
     print(f"kernels of {args.tree} built and loaded in {time.perf_counter() - t0:.1f} s ({card})",
           flush=True)
     if hasattr(cs, "ptxas_lines"):
-        layer = {"4", "4b", "layer"} & set(args.phases)
-        for kernel in ("layer_",) if layer else ("scan_fwd_kernel", "scan_bwd_kernel",
-                                                 "token_scatter_fwd_kernel"):
+        chosen = set(args.phases)
+        if {"4", "4b", "layer"} & chosen:
+            kernels = ("layer_",)
+        elif {"4c", "4d", "attn"} & chosen:
+            kernels = ("cross_attn_bwd_tc", "cross_attn_bwd_kernel")
+        else:
+            kernels = ("scan_fwd_kernel", "scan_bwd_kernel", "token_scatter_fwd_kernel",
+                       "token_scatter_bwd_kernel")
+        for kernel in kernels:
             for line in cs.ptxas_lines(kernel):
                 print("  ptxas " + line, flush=True)
     rate = cs.mufu_per_s()
@@ -283,8 +334,10 @@ def main() -> None:
               "20": lambda d: cs.phase_seg_scan(d, rate),
               "4": lambda d: {D: cs.phase_kernel_f(d, D) for D in (128, 64)},
               "4b": lambda d: {D: cs.phase_kernel_f_bwd(d, D) for D in (128, 64)},
+              "4c": lambda d: cs.phase_kernel_g(d)[0], "4d": lambda d: cs.phase_kernel_g_bwd(d)[0],
               "fwd": lambda d: sweep_times(d, "fwd"), "bwd": lambda d: sweep_times(d, "bwd"),
-              "layer": layer_times, "adjcarry": adjcarry_times, "scatter": scatter_times}
+              "layer": layer_times, "adjcarry": adjcarry_times, "scatter": scatter_times,
+              "attn": attn_times}
     for name in args.phases:
         result = phases[name](dev)
         if isinstance(result, dict):

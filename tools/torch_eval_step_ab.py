@@ -4,6 +4,7 @@ of the PyTorch port, on one NVIDIA GPU, for A/B runs between two commits.
 
     python tools/torch_eval_step_ab.py --tree PATH [--model smow_net] [--rounds 6]
     python tools/torch_eval_step_ab.py --tree PATH --step train --model change_mamba
+    python tools/torch_eval_step_ab.py --tree PATH --step train --chain fused
 
 Imports `smow_net_tpu_torch` and `chip_smoke` from PATH (the root of a
 checkout, e.g. a `git archive` of the parent commit unpacked into a
@@ -11,7 +12,9 @@ directory that .gitignore lists), builds the model on the card with
 `chip_smoke.seeded_state_dict`'s numpy-seeded weights and runs, on 16 pairs
 at 256 x 256, either `make_eval_step` in bf16 on 3 batches or, with `--step
 train`, chip_smoke.py's train step (`_train_setup`: bf16 compute over fp32
-masters, clip + AdamW) on one repeated batch: one warm-up call, then
+masters, clip + AdamW) on one repeated batch (`--chain` sets SMOW_Net's
+token-chain train lowering, `model.token_train_chain`: "fused" runs kernels
+D and D-bwd): one warm-up call, then
 `rounds` rounds of 5 calls, each timed with CUDA events; then 3 calls under
 torch.profiler, whose device events give the device's busy time per call
 and the kernels it launches per call. Prints one JSON line: the tree, the
@@ -38,6 +41,8 @@ def main() -> None:
     ap.add_argument("--model", default="smow_net")
     ap.add_argument("--step", choices=("eval", "train"), default="eval")
     ap.add_argument("--rounds", type=int, default=6)
+    ap.add_argument("--chain", choices=("hybrid", "fused", "unfused"), default=None,
+                    help="SMOW_Net's token-chain train lowering (default: the model's own)")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -62,6 +67,8 @@ def main() -> None:
     _kernels.library()
     if args.step == "train":
         model, state, step = chip_smoke._train_setup(args.model, torch.bfloat16, 100)
+        if args.chain:
+            model.token_train_chain = args.chain
         batch = chip_smoke.make_batches(dev, 1, 16, 256, seed=8)[0]
         run = lambda i: step(state, batch)
     else:
@@ -89,7 +96,8 @@ def main() -> None:
         torch.cuda.synchronize()
     on_device = chip_smoke.device_events(prof.key_averages())
     busy = sum(e.self_device_time_total for e in on_device) / 1e3 / 3
-    print(json.dumps({"tree": args.tree, "model": args.model, "step": args.step, "card": card,
+    print(json.dumps({"tree": args.tree, "model": args.model, "step": args.step,
+                      "chain": args.chain, "card": card,
                       "ms_per_call": {"median": median, "q1": q1, "q3": q3, "calls": len(times)},
                       "busy_ms": busy, "busy_share": busy / median,
                       "kernels_per_call": sum(e.count for e in on_device) / 3}))
