@@ -55,13 +55,21 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      and 512 at (2, 4096, D); the ragged (2, 1000, D) at every built width;
      head 0's logits ~1e3 above the others' (one softmax shift per (pixel,
      head)); one launch per call; an unbuilt (h, M), D = 96 and fp16 raise
-     ValueError; then its bf16 time at (16, 16384, 128)
+     ValueError; the ptxas lines of its bf16 tensor-core body (no spills)
+     and its grid; two bf16 runs bitwise equal; then its bf16 time at (16,
+     16384, 128) (and D = 64), a CUDA graph of 20 calls and the kernel
+     alone, beside its bound
   4d. kernel G-bwd (`cross_attn_bwd`) vs torch.autograd.grad of the plain
      version in fp32: all eight input gradients at the cases of 4c (fp32 at
-     1e-4 of each leaf's largest element), one launch per backward; the
+     1e-4 of each leaf's largest element; the spread case's fp32 against
+     the plain arithmetic in float64, `attn_f64`, since the fp32 plain
+     version misses that bound there itself), one launch per backward; the
      ptxas lines of its bf16 tensor-core body (no spills); two bf16 runs
      bitwise equal but for dk and dv, and its record bytes per call; then
-     its bf16 time. No later phase may launch G or G-bwd: every counter
+     its bf16 time; then fp32 G and G-bwd on the 1e4 key spread at (2,
+     4096, D), every built D, against the plain arithmetic in float64
+     (`attn_f64`): the output and all eight gradients within 1e-4 of their
+     largest element. No later phase may launch G or G-bwd: every counter
      reset (phases 5, 7, 8b, 9, 11, 15, 17, 21, 23, 24) and phase 25 check
      it
   5. main path: get_model("smow_net") with numpy-seeded weights in bf16,
@@ -1253,6 +1261,17 @@ def _attn_args(dev, B, N, D, h=8, M=8, seed=8, spread=False):
     return args, f(B, N, D)
 
 
+def attn_f64(x, ln_s, ln_b, wq, k, v, w_out, b_out, *, scale, eps=1e-5):
+    """`cross_attn_head1_plain`'s arithmetic in the dtype of its inputs
+    throughout (float64 for a reference): the plain version's own LayerNorm
+    (`layer_norm32`) computes in fp32 whatever its input's dtype."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x * x).mean(dim=-1, keepdim=True) - mu * mu
+    q = ((x - mu) * torch.rsqrt(var + eps) * ln_s + ln_b) @ wq
+    attn = torch.softmax(q[..., None] * (k * scale).transpose(1, 2)[:, None], dim=-1)
+    return (attn * v.transpose(1, 2)[:, None]).sum(dim=-1) @ w_out + b_out + x
+
+
 def _random_perm(dev, D, seed=9):
     p = np.zeros((D, D), np.float32)
     p[np.arange(D), np.random.default_rng(seed).permutation(D)] = 1.0
@@ -1301,6 +1320,11 @@ def phase_kernel_g(dev) -> tuple:
 
     log("phase 4c: kernel G cross_attn_fwd vs cross_attn_head1_plain (op path)")
     t0 = time.perf_counter()
+    require_no_spills("cross_attn_fwd_tc", 2, "G's bf16 body (D = 64, 128)")
+    for D in (128, 64):
+        ctas, rows, per = xattn.attn_fwd_grid(D, torch.bfloat16, dev)
+        log(f"  G's bf16 grid at D = {D}: {ctas} blocks resident in one wave, {per} tiles of "
+            f"{rows} rows a block at once")
     before, calls = _kernels.launches["cross_attn_fwd"], 0
     for label, args32, _, perm, dtypes in _attn_cases(dev):
         scale = args32[0].shape[-1] ** -0.5
@@ -1340,15 +1364,24 @@ def phase_kernel_g(dev) -> tuple:
     out = call()
     want = xattn.cross_attn_head1_plain(*[a.float() for a in args], scale=scale)
     result = {"max_abs_err": check("timed (16,16384,128) bf16", out, want, 1e-4, BF16_REL)}
+    require(torch.equal(out, call()), "G's bf16 output bitwise equal in two runs")
     result["ms"] = graph_ms(call)
     result["plain_ms"] = graph_ms(lambda: xattn.cross_attn_head1_plain(*args, scale=scale))
     result.update(bound(nbytes(args[0], out, *[a.float() for a in args[1:]]),
                         _attn_flops(16, 16384, 128)), library_ms=None)
-    log(f"  bf16 time: kernel {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms, "
-        f"bound {result['bound_ms']:.4f} ms ({result['bound_by']}) (CUDA graph of 20 calls); "
-        f"kernel alone {kernel_only_ms(call, 'cross_attn_fwd'):.4f} ms (profiler); 20 calls "
-        f"between events {cuda_ms(call):.4f} ms; no PyTorch call computes G (SDPA covers "
-        "only the softmax . v core, not the LayerNorm, projections and residual)")
+    alone = launch_ms(call, "cross_attn_fwd", iters=20)
+    log(f"  two runs bitwise equal; bf16 time: kernel {result['ms']:.4f} ms (CUDA graph of 20 "
+        f"calls), alone {alone:.4f} ms (CUDA events around each launch), plain "
+        f"{result['plain_ms']:.4f} ms, bound {result['bound_ms']:.4f} ms ({result['bound_by']}): "
+        f"{result['bound_ms'] / result['ms']:.0%} of the bound; 20 calls between events "
+        f"{cuda_ms(call):.4f} ms; no PyTorch call computes G (SDPA covers only the softmax . v "
+        "core, not the LayerNorm, projections and residual)")
+    args64 = [a.to(torch.bfloat16) for a in _attn_args(dev, 16, 16384, 64)[0]]
+    call64 = lambda: xattn.cross_attn_head1(*args64, scale=64 ** -0.5)
+    ms64, bound64 = graph_ms(call64), nbytes(args64[0], args64[0]) / HBM_BYTES_PER_S * 1e3
+    log(f"  (info) bf16 at (16,16384,64): kernel {ms64:.4f} ms (CUDA graph of 20 calls), alone "
+        f"{launch_ms(call64, 'cross_attn_fwd', iters=20):.4f} ms, byte bound {bound64:.4f} ms: "
+        f"{bound64 / ms64:.0%} of it")
     log(f"  phase 4c took {time.perf_counter() - t0:.1f} s")
     _kernels.launches["cross_attn_fwd"] = 0
     return result, calls
@@ -1378,6 +1411,18 @@ def phase_kernel_g_bwd(dev) -> tuple:
             ref = [a.detach().float().requires_grad_() for a in args]
             want = torch.autograd.grad(
                 xattn.cross_attn_head1_plain(*ref, scale=scale, perm=perm), ref, gy.float())
+            if dt == torch.float32 and label.startswith("spread"):
+                # the fp32 plain version's LayerNorm and q miss 1e-4 here
+                # themselves (logits ~1e3): fp32 is held against float64
+                plain32 = want
+                ref = [a.detach().double().requires_grad_() for a in args]
+                want = torch.autograd.grad(attn_f64(*ref, scale=scale), ref, gy.double())
+                units = [(u.double() - w).abs().max().item() / (1e-4 * w.abs().max().item())
+                         for u, w in zip(plain32, want)]
+                log(f"  (info) {label}: the fp32 plain version against float64, in units of "
+                    "1e-4 of each leaf's largest element: " +
+                    ", ".join(f"d{n} {u:.2f}" for n, u in zip(names, units)))
+                want = [w.float() for w in want]
             for n, g, w, a in zip(names, got, want, args):
                 require(g.dtype == a.dtype and g.shape == a.shape, f"{label} d{n}: "
                         f"{g.dtype} {tuple(g.shape)}")
@@ -1419,7 +1464,28 @@ def phase_kernel_g_bwd(dev) -> tuple:
         f"{result['plain_ms']:.4f} ms (CUDA events), bound {result['bound_ms']:.4f} ms "
         f"({result['bound_by']}); kernel alone {kernel_only_ms(call, 'cross_attn_bwd'):.4f} ms "
         f"(profiler); 20 calls between events {cuda_ms(call):.4f} ms")
+
+    # fp32 on the 1e4 key spread against float64: near a tie between two of
+    # head 0's tokens the gradient moves with q's absolute error
+    before, spread_calls = {n: _kernels.launches[n] for n in G_KERNELS}, 0
+    for D, _, _ in xattn._ATTN_SHAPES:
+        args32, gy32 = _attn_args(dev, 2, 4096, D, seed=D + 15, spread=True)
+        args = [a.requires_grad_() for a in args32]
+        out = xattn.cross_attn_head1(*args, scale=D ** -0.5)
+        got = (out,) + torch.autograd.grad(out, args, gy32)
+        spread_calls += 1
+        ref = [a.detach().double().requires_grad_() for a in args32]
+        want = attn_f64(*ref, scale=D ** -0.5)
+        want = (want,) + torch.autograd.grad(want, ref, gy32.double())
+        for n, g, w in zip(("y",) + names, got, want):
+            check(f"spread (2,4096,{D}) fp32 vs float64 {n if n == 'y' else 'd' + n}", g,
+                  w.float(), 0.0, 1e-4)
+    torch.cuda.synchronize()
+    runs = {n: _kernels.launches[n] - before[n] for n in G_KERNELS}
+    require(runs == dict.fromkeys(G_KERNELS, spread_calls),
+            f"the spread checks launched G and G-bwd once each: {runs} for {spread_calls}")
     log(f"  phase 4d took {time.perf_counter() - t0:.1f} s")
+    calls += spread_calls
     for n in G_KERNELS:
         _kernels.launches[n] = 0
     return result, calls

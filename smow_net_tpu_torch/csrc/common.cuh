@@ -54,6 +54,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // Bilinear corners of one grid point (x, y in [-1, 1]) in an H x W image,
 // exactly as the JAX package's `_corner_indices_weights`. The coordinate is
 // unnormalised as (g + 1) (size - 1) / 2 with kAlign (align_corners=True)

@@ -24,7 +24,7 @@
 // products with h = 8 columns, exactly the n of `mma.sync.m16n8k16`
 // (xattn_layer_tc.cuh): do = g wo^T per row, dxn = dq wq^T (m16n8k8: k =
 // the 8 heads), and the sums over rows xhat^T dq and g^T o. Persistent
-// blocks of 8 warps (one per SM: 222 KB of shared memory at D = 128) stage
+// blocks of 8 warps (one per SM: 224 KB of shared memory at D = 128) stage
 // wq and wo once at their bf16 values, wq in fp32 and both as B fragments
 // laid out per lane, and each warp walks its own contiguous range of 16-row
 // tiles, the next tile's x and g rows streaming in through `cp.async` into
@@ -32,9 +32,10 @@
 // Per tile, in fp32 in the accumulator layout (lane (g, q): rows g and g +
 // 8, heads 2q and 2q + 1): LN1's statistics and xhat through the
 // permutation, xhat's hi + lo to the warp's shared copy; q = LN1(xc) wq in
-// fp32 on the CUDA cores, as F computes it (where a head's keys are large,
-// q kexp reaches ~1e3, and the 2^-17 of a hi/lo product moves that head's
-// softmax past the bound: phase 4d's spread case); do from the bf16 g tile
+// fp32 on the CUDA cores (where a head's keys are large, q kexp reaches
+// ~1e3, and the 2^-17 of a hi/lo product moves that head's softmax past the
+// bound: phase 4d's spread case), these steps and the softmax being G's own
+// (cross_attn_tc.cuh), so the recompute has G's bits; do from the bf16 g tile
 // through `ldmatrix` (exact); the 8 x 8 softmax and its backward on the
 // CUDA cores, one per (row, head) of the lane, with `softmax_tokens`'
 // per-head shift; dq split into hi + lo is the A operand of dxn from
@@ -70,15 +71,17 @@
 // its registers. At the end the block reduces its threads' sums in shared
 // memory and writes ONE partial row; the wrapper sums the rows over
 // blocks, a tiny torch reduction. dkexp and dvexp (64 values per batch) are
-// summed per tile in shared memory and added with fp32 atomicAdd. The LN
-// output's buffer takes the cotangent tile once the attention has read it,
-// so two fp32 tiles fit up to D = 512. Rows past N load as zeros, which
+// summed per tile in shared memory and added with fp32 atomicAdd. The
+// forward recompute is G's first design's (LN1 and q in float64,
+// xattn_layer.cuh); the buffer of LN1's statistics takes the cotangent tile
+// once the attention has read them, so two fp32 tiles fit up to D = 512.
+// Rows past N load as zeros, which
 // makes every contribution they add exactly zero, and are not stored.
 // Weights arrive as fp32; only x, g and dx take the activation dtype.
 
 #include <type_traits>
 
-#include "xattn_layer_tc.cuh"
+#include "cross_attn_tc.cuh"
 
 namespace {
 
@@ -118,7 +121,7 @@ cross_attn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy, T* __re
   static_assert(kRows * kR >= P::kSize, "the block's sums reuse the x tile");
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);   // x tile (permuted); at the end the sums
-  float* gs = xs + kRows * kR;                   // LN(x), then the cotangent tile g
+  float* gs = xs + kRows * kR;                   // LN1's statistics, then the cotangent tile g
   float* qs = gs + kRows * kR;                   // (kRows, kHeads)
   float* os = qs + kRows * kHeads;               // (kRows, kHeads)
   float* dqs = os + kRows * kHeads;              // (kRows, kHeads)
@@ -147,12 +150,12 @@ cross_attn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy, T* __re
     const int n0 = (tile % tiles_per_b) * kRows;
     __syncthreads();   // the previous tile's reads are done
 
-    // 1. forward recompute: the x tile (permuted), LN, q and o
+    // 1. forward recompute: the x tile (permuted), LN1's statistics, q and o
     load_tile<kD, kRows>(x + (size_t)b * N * kD, p.perm, n0, N, xs);
     __syncthreads();
-    layer_norm_rows<kD, kRows>(xs, gs, p.ln1_g, p.ln1_b, p.eps, mu, rs);
+    ln_stats_rows<kD, kRows>(xs, p.eps, reinterpret_cast<double*>(gs), mu, rs);
     __syncthreads();
-    attention_rows<kD, kRows>(gs, p, b, os, qs);
+    attention_rows<kD, kRows>(xs, reinterpret_cast<const double*>(gs), p, b, os, qs);
     __syncthreads();
     load_tile<kD, kRows>(gy + (size_t)b * N * kD, static_cast<const int*>(nullptr), n0, N, gs);
     __syncthreads();
@@ -302,10 +305,7 @@ cudaError_t launch(const void* x, const void* gy, void* dx, void* part, void* dk
 
 namespace tcg {
 
-using namespace smow::xlayer::tc;
-
-constexpr int kWarps = kThreads / 32;
-constexpr int kWarpRows = 16;   // rows of a warp's tile
+using namespace smow::xlayer::tca;
 
 template <int kD>
 struct Layout {
@@ -320,11 +320,11 @@ struct Layout {
   static constexpr size_t kOffXh = 4 * kTile;
   static constexpr size_t kOffOq = 6 * kTile;
   static constexpr size_t kWarpBytes = kOffOq + sizeof(__nv_bfloat16) * 4 * kWarpRows * kHeads;
-  // the block's: wq (kD, 8) fp32; B fragments per lane of do = g wo^T
+  // the block's: wq (kD, kWqS) fp32; B fragments per lane of do = g wo^T
   // (uint2 [kKS][32]) and of dxn = dq wq^T (uint32 [kNT][32]); ln_g, ln_b
   // (kD floats each); perm (kD ints)
   static constexpr size_t kOffWq = kWarps * kWarpBytes;
-  static constexpr size_t kOffWo = kOffWq + sizeof(float) * kD * kHeads;
+  static constexpr size_t kOffWo = kOffWq + sizeof(float) * kD * kWqS;
   static constexpr size_t kOffWqT = kOffWo + sizeof(uint2) * kKS * 32;
   static constexpr size_t kOffLn = kOffWqT + sizeof(uint32_t) * kNT * 32;
   static constexpr size_t kOffPerm = kOffLn + sizeof(float) * 2 * kD;
@@ -336,14 +336,6 @@ struct Layout {
   static constexpr int kSums = 2 * kD * kHeads + kHeads + kD;
   static_assert(sizeof(float) * kSums <= kWarpBytes, "a warp's sums over its tiles");
 };
-
-__device__ __forceinline__ float bf16_value(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ uint32_t pack(float a, float b) {
-  return as_u32(__floats2bfloat162_rn(a, b));
-}
 
 __device__ __forceinline__ __nv_bfloat162 bf2(const __nv_bfloat16* p) {
   return *reinterpret_cast<const __nv_bfloat162*>(p);
@@ -387,9 +379,9 @@ cross_attn_bwd_tc(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   __nv_bfloat16* xhl = xhh + kWarpRows * kXS;
   auto* oq = reinterpret_cast<__nv_bfloat16*>(ws + L::kOffOq);   // (4, 16, 8)
 
-  // the weights at their bf16 values, once per block: wq in fp32 for q, the
-  // B fragments of do = g wo^T and of dxn = dq wq^T
-  for (int i = t; i < kD * kHeads; i += kThreads) wq32[i] = bf16_value(p.wq[i]);
+  // the weights at their bf16 values, once per block: G's prefix copy (wq in
+  // fp32 for q), the B fragments of do = g wo^T and of dxn = dq wq^T
+  stage_prefix<kD>(p, wq32, g1, be1, perm);
   for (int i = t; i < kKS * 32; i += kThreads) {
     const int s = i >> 5, l = i & 31, lg = l >> 2, lq = l & 3;
     const int k0 = 16 * s + 2 * lq, k1 = k0 + 8;
@@ -401,11 +393,6 @@ cross_attn_bwd_tc(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     const int nt = i >> 5, l = i & 31, d = 8 * nt + (l >> 2), h = 2 * (l & 3);
     reinterpret_cast<uint32_t*>(smem + L::kOffWqT)[i] =
         pack(p.wq[d * kHeads + h], p.wq[d * kHeads + h + 1]);
-  }
-  for (int i = t; i < kD; i += kThreads) {
-    g1[i] = p.ln1_g[i];
-    be1[i] = p.ln1_b[i];
-    perm[i] = p.perm ? p.perm[i] : i;
   }
 
   // this warp's tiles: a contiguous range, so that its batch seldom changes
@@ -476,85 +463,25 @@ cross_attn_bwd_tc(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     __nv_bfloat16* xt = xbuf + buf * kWarpRows * kXS;
     const __nv_bfloat16* gt = gbuf + buf * kWarpRows * kXS;
 
-    // LN1's statistics of xc = x[perm], rows g (i = 0) and g + 8 (i = 1): a
-    // quad holds a row
-    float mu[2], rs[2];
-    {
-      float s[2] = {0.f, 0.f}, ss[2] = {0.f, 0.f};
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const int2 src = *reinterpret_cast<const int2*>(perm + nt * 8 + 2 * q);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float a = __bfloat162float(xt[(g + 8 * i) * kXS + src.x]);
-          const float c = __bfloat162float(xt[(g + 8 * i) * kXS + src.y]);
-          s[i] += a + c;
-          ss[i] += a * a + c * c;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int o = 1; o <= 2; o <<= 1) {
-          s[i] += __shfl_xor_sync(0xffffffffu, s[i], o);
-          ss[i] += __shfl_xor_sync(0xffffffffu, ss[i], o);
-        }
-        mu[i] = s[i] * (1.f / kD);
-        rs[i] = rsqrtf(ss[i] * (1.f / kD) - mu[i] * mu[i] + p.eps);
-      }
-    }
-
-    // xhat (hi, lo) into the warp's copy; q = LN1(xc) wq in fp32 on the CUDA
-    // cores, this lane's columns and then the quad's sum (q * kexp reaches
-    // ~1e3 where a head's keys are large: the hi/lo split's 2^-17 of q would
-    // move such a head's softmax past the bound)
-    float qp[2][kHeads];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int h = 0; h < kHeads; ++h) qp[i][h] = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const int col = 8 * nt + 2 * q;
-      const int2 src = *reinterpret_cast<const int2*>(perm + col);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = g + 8 * i;
-        const float h0 = (__bfloat162float(xt[r * kXS + src.x]) - mu[i]) * rs[i];
-        const float h1 = (__bfloat162float(xt[r * kXS + src.y]) - mu[i]) * rs[i];
-        uint32_t hh, hl;
-        split2(h0, h1, hh, hl);
-        *reinterpret_cast<uint32_t*>(xhh + r * kXS + col) = hh;
-        *reinterpret_cast<uint32_t*>(xhl + r * kXS + col) = hl;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float xn = (e ? h1 : h0) * g1[col + e] + be1[col + e];
-          const float4 wa = *reinterpret_cast<const float4*>(wq32 + (col + e) * kHeads);
-          const float4 wb = *reinterpret_cast<const float4*>(wq32 + (col + e) * kHeads + 4);
-          const float w[kHeads] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-          for (int h = 0; h < kHeads; ++h) qp[i][h] += xn * w[h];
-        }
-      }
-    }
-    // element c of the accumulator layout: row g + 8 (c >> 1), head 2q + (c & 1)
-    float qa[4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int h = 0; h < kHeads; ++h) {
-        qp[i][h] += __shfl_xor_sync(0xffffffffu, qp[i][h], 1);
-        qp[i][h] += __shfl_xor_sync(0xffffffffu, qp[i][h], 2);
-      }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int i = c >> 1, e = c & 1;
-      float v = qp[i][e];
-#pragma unroll
-      for (int k = 1; k < 4; ++k)
-        if (q == k) v = qp[i][2 * k + e];
-      qa[c] = v;
-    }
+    // LN1's statistics and q = LN1(xc) wq, as G computes them, from the
+    // tile; xhat (hi, lo) into the warp's copy on the way
+    auto xc = [&](int nt) {
+      const int2 src = *reinterpret_cast<const int2*>(perm + nt * 8 + 2 * q);
+      return make_float4(__bfloat162float(xt[g * kXS + src.x]),
+                         __bfloat162float(xt[g * kXS + src.y]),
+                         __bfloat162float(xt[(g + 8) * kXS + src.x]),
+                         __bfloat162float(xt[(g + 8) * kXS + src.y]));
+    };
+    auto keep_xhat = [&](int i, int col, float h0, float h1) {
+      const int r = g + 8 * i;
+      uint32_t hh, hl;
+      split2(h0, h1, hh, hl);
+      *reinterpret_cast<uint32_t*>(xhh + r * kXS + col) = hh;
+      *reinterpret_cast<uint32_t*>(xhl + r * kXS + col) = hl;
+    };
+    float mu[2], rs[2], qa[4];
+    row_stats<kD>(xc, p.eps, mu, rs);
+    head_queries<kD>(xc, keep_xhat, mu, rs, wq32, g1, be1, q, qa);
 
     // do = g wo^T (the bf16 g tile is exact)
     float dov[4] = {0.f, 0.f, 0.f, 0.f};
@@ -587,31 +514,14 @@ cross_attn_bwd_tc(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     float o[4], dq[4];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int hh = 2 * q + e;
-      const size_t at = ((size_t)b * kHeads + hh) * kM;
-      const float4* kp = reinterpret_cast<const float4*>(p.kexp + at);
-      const float4* vp = reinterpret_cast<const float4*>(p.vexp + at);
-      const float4 k0 = __ldg(kp), k1 = __ldg(kp + 1), v0 = __ldg(vp), v1 = __ldg(vp + 1);
-      const float kr[kM] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
-      const float vr[kM] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+      float kr[kM], vr[kM];
+      head_tokens(p, b, 2 * q + e, kr, vr);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int c = 2 * i + e;
         const float qv = qa[c];
-        float ev[kM];
-        float mx = qv * kr[0];
-#pragma unroll
-        for (int m = 1; m < kM; ++m) mx = fmaxf(mx, qv * kr[m]);
-        float den = 0.f, num = 0.f;
-#pragma unroll
-        for (int m = 0; m < kM; ++m) {
-          ev[m] = expf(qv * kr[m] - mx);
-          den += ev[m];
-        }
-        den = fmaxf(den, 1e-30f);
-#pragma unroll
-        for (int m = 0; m < kM; ++m) num += ev[m] * vr[m];
-        o[c] = num / den;
+        float ev[kM], den;
+        o[c] = softmax_o(qv, kr, vr, ev, den);
         const float dnum = dov[c] / den;
         const float dden = -dov[c] * o[c] / den;
         float d = 0.f;
@@ -768,8 +678,8 @@ cross_attn_bwd_tc(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     float lg = 0.f, lb = 0.f;
 #pragma unroll
     for (int h = 0; h < kHeads; ++h) {
-      lg += wq32[d * kHeads + h] * txq[d * kHeads + h];
-      lb += wq32[d * kHeads + h] * tsq[h];
+      lg += wq32[d * kWqS + h] * txq[d * kHeads + h];
+      lb += wq32[d * kWqS + h] * tsq[h];
     }
     rec[P::kOffLng + d] = lg;
     rec[P::kOffLnb + d] = lb;

@@ -48,10 +48,12 @@
 //
 // fp32 (`xattn_layer_fwd_kernel`, the port's first design, kept for the
 // fp32 checks and fp32 models): one block of 256 threads owns a tile of 64
-// rows in fp32 shared memory; LN statistics one warp per row, the 8 x 8
+// rows in fp32 shared memory; LN statistics one warp per row, LN1 and q
+// (in float64, rounded once: xattn_layer.cuh `attention_rows`) and the 8 x 8
 // attention one thread per (row, head); fp32 w1 and w2 (256 KB at D = 128)
 // stream through shared memory 64 hidden units at a time, the MLP in fp32
-// FMA on the CUDA cores (4 x 4 outputs per thread), all arithmetic fp32.
+// FMA on the CUDA cores (4 x 4 outputs per thread), all other arithmetic
+// fp32.
 
 #include <algorithm>
 
@@ -79,7 +81,7 @@ xattn_layer_fwd_kernel(const T* __restrict__ x, T* __restrict__ out, Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* xs = smem;                        // x tile, later y1
-  float* ns = xs + kTile * kR;             // LN1(x), later LN2(y1)
+  float* ns = xs + kTile * kR;             // LN1's statistics, later LN2(y1)
   float* w1s = ns + kTile * kR;            // (kD, kChunk)
   float* w2s = w1s + kD * kChunk;          // (kChunk, kD)
   float* hs = w2s + kChunk * kD;           // (kTile, kHRow) GELU(h) chunk
@@ -95,12 +97,13 @@ xattn_layer_fwd_kernel(const T* __restrict__ x, T* __restrict__ out, Params p) {
   load_tile<kD>(xb, p.perm, n0, N, xs);
   __syncthreads();
 
-  // 2. LN1
-  layer_norm_rows<kD>(xs, ns, p.ln1_g, p.ln1_b, p.eps);
+  // 2. LN1's statistics (over ns, free until LN2)
+  double* st = reinterpret_cast<double*>(ns);
+  ln_stats_rows<kD>(xs, p.eps, st);
   __syncthreads();
 
   // 3. q and the per-(row, head) softmax over the M memory tokens
-  attention_rows<kD>(ns, p, b, os);
+  attention_rows<kD>(xs, st, p, b, os);
   __syncthreads();
 
   // 4. y1 = o wo + bo + xc, in place of the tile

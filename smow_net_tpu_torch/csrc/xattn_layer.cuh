@@ -23,8 +23,9 @@ constexpr int kChunk = 64;    // hidden units staged per step
 constexpr int kThreads = 256;
 template <int kD> constexpr int kHidden = 2 * kD;
 template <int kD> constexpr int kRow = kD + 4;  // padded smem row stride (bank spread)
-// G's and G-bwd's rows per tile: two (kRows, kRow) fp32 tiles take 67 KB at
-// kD = 128 with 64 rows, and 132 KB at kD = 512 with 32
+// The first design's rows per tile in G and G-bwd: G-bwd's two (kRows, kRow)
+// fp32 tiles take 67 KB at kD = 128 with 64 rows, and 132 KB at kD = 512
+// with 32
 template <int kD> constexpr int kAttnRows = kD >= 256 ? 32 : 64;
 
 struct Params {
@@ -50,8 +51,9 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, const int* 
 }
 
 // LayerNorm of kRows rows of `src` into `dst` (both smem, stride kRow<kD>), one
-// warp per row, statistics E[x^2] - mu^2 as in the JAX package. Each row's
-// mean and 1/sqrt(var + eps) go to mu[r], rs[r] when those are given.
+// warp per row, statistics E[x^2] - mu^2 as in the JAX package (F's LN2).
+// Each row's mean and 1/sqrt(var + eps) go to mu[r], rs[r] when those are
+// given.
 template <int kD, int kRows = kTile>
 __device__ __forceinline__ void layer_norm_rows(const float* src, float* dst,
                                                 const float* __restrict__ g,
@@ -101,17 +103,54 @@ __device__ __forceinline__ float softmax_tokens(float q, const float* __restrict
   return fmaxf(den, 1e-30f);
 }
 
-// q = LN1(x) wq for each (row, head) of the tile (ns: LN1 output), the
-// attention output o = softmax . v into os (kRows, kHeads), q into qs when
-// given.
+// LN1's statistics of kRows rows of `src` (smem, stride kRow<kD>), one warp
+// per row, in float64 from the fp32 tile: st[2 r] = mu, st[2 r + 1] =
+// 1/sqrt(E[x^2] - mu^2 + eps), the JAX package's statistics; each also to
+// mu_out[r], rs_out[r] in fp32 when those are given (the backward's xhat).
 template <int kD, int kRows = kTile>
-__device__ __forceinline__ void attention_rows(const float* ns, const Params& p, int b,
-                                               float* os, float* qs = nullptr) {
+__device__ __forceinline__ void ln_stats_rows(const float* src, float eps, double* st,
+                                              float* mu_out = nullptr, float* rs_out = nullptr) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < kRows; r += kThreads / 32) {
+    double s = 0.0, ss = 0.0;
+#pragma unroll
+    for (int j = 0; j < kD / 32; ++j) {
+      const double v = src[r * kRow<kD> + lane + 32 * j];
+      s += v;
+      ss += v * v;
+    }
+    const double mu = warp_sum(s) * (1.0 / kD);
+    const double rs = 1.0 / sqrt(warp_sum(ss) * (1.0 / kD) - mu * mu + eps);
+    if (lane == 0) {
+      st[2 * r] = mu;
+      st[2 * r + 1] = rs;
+      if (mu_out != nullptr) {
+        mu_out[r] = (float)mu;
+        rs_out[r] = (float)rs;
+      }
+    }
+  }
+}
+
+// q = LN1(xc) wq for each (row, head) of the tile (xs: the xc tile; st: its
+// statistics from ln_stats_rows), then the attention output o = softmax . v
+// into os (kRows, kHeads), q into qs when given. LN1 and q run in float64 from
+// the fp32 tile and weights and round once to fp32: where a head's keys are
+// large, q kexp reaches ~1e3 and the gradient near a tie between two tokens
+// moves with q's absolute error, which an fp32 LayerNorm and one serial fp32
+// sum over D each put near or past 1e-4 of a leaf's largest element.
+template <int kD, int kRows = kTile>
+__device__ __forceinline__ void attention_rows(const float* xs, const double* st, const Params& p,
+                                               int b, float* os, float* qs = nullptr) {
   for (int i = threadIdx.x; i < kRows * kHeads; i += kThreads) {
     const int r = i / kHeads, hh = i % kHeads;
-    float q = 0.f;
+    const double mu = st[2 * r], rs = st[2 * r + 1];
+    double qd = 0.0;
 #pragma unroll 8
-    for (int d = 0; d < kD; ++d) q += ns[r * kRow<kD> + d] * __ldg(p.wq + d * kHeads + hh);
+    for (int d = 0; d < kD; ++d)
+      qd += ((xs[r * kRow<kD> + d] - mu) * rs * __ldg(p.ln1_g + d) + __ldg(p.ln1_b + d)) *
+            __ldg(p.wq + d * kHeads + hh);
+    const float q = (float)qd;
     const float* vr = p.vexp + ((size_t)b * kHeads + hh) * kM;
     float e[kM];
     const float den = softmax_tokens(q, p.kexp + ((size_t)b * kHeads + hh) * kM, e);

@@ -129,7 +129,7 @@ xattn_layer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy, T* __r
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* ys = smem;                        // x tile, then y1
-  float* ns = ys + kTile * kR;             // LN1(x), then LN2(y1), then the x tile again
+  float* ns = ys + kTile * kR;             // LN1's statistics, then LN2(y1), then the x tile again
   float* gs = ns + kTile * kR;             // output cotangent g, then dy1
   float* w1s = gs + kTile * kR;            // (kD, kW1Row) w1 chunk
   float* w2s = w1s + kD * kW1Row;          // (kChunk, kW2Row) w2 chunk
@@ -166,9 +166,9 @@ xattn_layer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy, T* __r
     __syncthreads();
 
     // 2. forward recompute up to LN2(y1), as kernel F
-    layer_norm_rows<kD>(ys, ns, p.ln1_g, p.ln1_b, p.eps, mu1, rs1);
+    ln_stats_rows<kD>(ys, p.eps, reinterpret_cast<double*>(ns), mu1, rs1);
     __syncthreads();
-    attention_rows<kD>(ns, p, b, os, qs);
+    attention_rows<kD>(ys, reinterpret_cast<const double*>(ns), p, b, os, qs);
     __syncthreads();
     attention_out_rows<kD>(ys, os, p);
     __syncthreads();

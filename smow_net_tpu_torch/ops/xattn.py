@@ -16,9 +16,10 @@ thread-block clusters keep dw1 and dw2 on chip and write one record per
 block (`layer_bwd_slab`, `layer_grid`). `cross_attn_head1`, the layer's
 attention sublayer alone, is routed the same way: kernels G
 (csrc/cross_attn.cu) and G-bwd (csrc/cross_attn_bwd.cu) on CUDA,
-`cross_attn_head1_plain` on the CPU; in bf16 at D <= 128 G-bwd runs its
-products on the tensor cores, warp-owned 16-row tiles, and writes one
-record per block (`attn_bwd_blocks`). Both kernels and both plain versions
+`cross_attn_head1_plain` on the CPU; in bf16 at D <= 128 both run on
+warp-owned 16-row tiles with their products on the tensor cores (G's grid:
+`attn_fwd_grid`), G-bwd writing one record per block (`attn_bwd_blocks`),
+and G's q and o are the bits G-bwd's recompute forms. Both kernels and both plain versions
 take one softmax shift per (pixel, head), as the reference's softmax does,
 not the Pallas kernels' one per pixel.
 """
@@ -33,7 +34,7 @@ import torch
 
 from . import _kernels
 
-__all__ = ["attn_bwd_blocks", "cross_attn_head1", "cross_attn_head1_plain",
+__all__ = ["attn_bwd_blocks", "attn_fwd_grid", "cross_attn_head1", "cross_attn_head1_plain",
            "cross_layer_head1", "cross_layer_head1_plain", "layer_bwd_slab", "layer_grid",
            "layer_norm32"]
 
@@ -116,7 +117,7 @@ def _record_layout(D, h):
 @functools.lru_cache(maxsize=None)
 def _grid_query(entry, device_index, args, outputs):
     """The `outputs` int results of the grid entry `entry` (xattn_layer_grid,
-    cross_attn_bwd_grid) for the int arguments `args`, once per device."""
+    cross_attn_fwd_grid, cross_attn_bwd_grid) for the int arguments `args`, once per device."""
     out = [ctypes.c_int(0) for _ in range(outputs)]
     lib = _kernels.library()
     with torch.cuda.device(device_index):
@@ -146,6 +147,15 @@ def layer_bwd_slab(B, N, D, dtype, device):
         return min(tiles, ctas), sum(math.prod(s) for _, s in _slab_layout(D, 8, 2 * D))
     per = 2 * D // _BWD_SLICE
     return min(ctas // per, tiles) * per, sum(math.prod(s) for _, s in _record_layout(D, 8))
+
+
+def attn_fwd_grid(D, dtype, device):
+    """Kernel G's residency on the card for width D and dtype: (blocks
+    resident in one wave, rows of a tile, tiles a block takes at once). The
+    bf16 kernel at D <= 128 is persistent, two blocks of 8 warps an SM, a
+    16-row tile a warp at once; the others launch one block per tile."""
+    index = torch.device(device).index or 0
+    return _grid_query("cross_attn_fwd_grid", index, (D, int(dtype == torch.bfloat16)), 3)
 
 
 def attn_bwd_blocks(B, N, D, dtype, device):

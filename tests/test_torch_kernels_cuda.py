@@ -5,9 +5,10 @@ F-bwd, the layer at D = 128 and 64; the selective scan's I-fwd, I-ckpt and
 I-bwd, over the grouped layout (I) and the flat one (H), seeded, at any
 number of rows, the forward sweep on misaligned rows; H-seg's carry and
 adjoint carry (ragged, misaligned, bf16, bitwise alike twice); the general
-scan's J; G, the layer's attention sublayer, at D = 128 and 512, and G-bwd
-at every built width, its bf16 tensor-core body bitwise alike twice)
-against their plain versions, on the card. Marked
+scan's J; G, the layer's attention sublayer, at D = 64, 128 and 512, and
+G-bwd at every built width, their bf16 tensor-core bodies bitwise alike
+twice, and both in fp32 on a logit spread against float64) against their
+plain versions, on the card. Marked
 `cuda`; each test skips when no CUDA device is present (there is no
 interpret mode for a CUDA kernel). On a GPU machine without JAX,
 skip tests/conftest.py (it configures JAX):
@@ -20,9 +21,9 @@ and F-bwd's MLP products and G-bwd's products on the tensor cores with each
 fp32 activation operand split into bf16 hi + lo, to about 2^-17 of the
 product) and round
 once, so they are held to one bf16 rounding (2^-8 relative) of the fp32
-plain result on the same inputs. F, F-bwd and G-bwd's bf16 body also wrap
-their persistent grids, run bitwise alike twice, spill nothing and hold
-tensor-core instructions."""
+plain result on the same inputs. F, F-bwd and G's and G-bwd's bf16 bodies
+also wrap their persistent grids, run bitwise alike twice, spill nothing and
+hold tensor-core instructions."""
 
 import numpy as np
 import pytest
@@ -1219,14 +1220,17 @@ def _attn_inputs(dev, rng, D, h=8, M=8, B=2, N=1000):
             f(B, M, h), f(B, M, h), f(h, D, scale=0.1), f(D, scale=0.1)], f(B, N, D)
 
 
-@pytest.mark.parametrize("D", [128, 512])
+@pytest.mark.parametrize("B,N", [(2, 1000), (3, 16411)], ids=["2x1000", "3x16411"])
+@pytest.mark.parametrize("D", [64, 128, 512])
 @pytest.mark.parametrize("use_perm", [False, True], ids=["no_perm", "perm"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-def test_cross_attn_kernel_matches_plain(dev, D, use_perm, dtype):
+def test_cross_attn_kernel_matches_plain(dev, D, use_perm, dtype, B, N):
     """Kernel G (the layer's attention sublayer) against the plain version in
-    fp32 on the same inputs, one launch per call."""
+    fp32 on the same inputs, one launch per call. N is ragged for every tile
+    (16, 32 and 64 rows); at (3, 16411) the bf16 body's warps take several
+    tiles each, across a batch's end."""
     rng = np.random.default_rng(D + 11)
-    args, _ = _attn_inputs(dev, rng, D)
+    args, _ = _attn_inputs(dev, rng, D, B=B, N=N)
     args = [a.to(dtype) for a in args]
     perm = _random_perm(dev, rng, D) if use_perm else None
     before = _kernels.launches["cross_attn_fwd"]
@@ -1288,6 +1292,79 @@ def test_cross_attn_bwd_bf16_kernel_on_a_logit_spread_matches_plain(dev, D):
                                gy.float())
     for g, w in zip(got, want):
         _close(g, w, 1e-5, BF16_REL)
+
+
+def _attn_f64(x, ln_s, ln_b, wq, k, v, w_out, b_out, *, scale, eps=1e-5):
+    """`cross_attn_head1_plain`'s arithmetic in the dtype of its inputs
+    throughout, float64 here: the plain version's own LayerNorm
+    (`layer_norm32`) computes in fp32 whatever its input's dtype."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x * x).mean(dim=-1, keepdim=True) - mu * mu
+    q = ((x - mu) * torch.rsqrt(var + eps) * ln_s + ln_b) @ wq
+    attn = torch.softmax(q[..., None] * (k * scale).transpose(1, 2)[:, None], dim=-1)
+    return (attn * v.transpose(1, 2)[:, None]).sum(dim=-1) @ w_out + b_out + x
+
+
+@pytest.mark.parametrize("D", [64, 128, 256, 384, 512])
+def test_cross_attn_fp32_kernels_on_a_logit_spread_match_float64(dev, D):
+    """fp32 G's output and G-bwd's eight gradients with head 0's keys scaled
+    by 1e4 at (2, 4096, D) (its logits ~1e3 apart; near a tie between two
+    tokens the gradient moves with q's absolute error) against autograd of
+    the plain version's arithmetic in float64, each within 1e-4 of its
+    largest element. Before xattn_layer.cuh `attention_rows` took LN1 and q
+    in float64, an fp32 LayerNorm and one serial fp32 sum for q put dx at
+    2.05x the bound at D = 128 and dln_bias at 7.28x at D = 512 (NVIDIA
+    H100 80GB HBM3, 700 W)."""
+    rng = np.random.default_rng(D + 15)
+    args, gy = _attn_inputs(dev, rng, D, N=4096)
+    args[4][..., 0] *= 1e4
+    args = [a.requires_grad_() for a in args]
+    out = xattn.cross_attn_head1(*args, scale=D ** -0.5)
+    got = (out,) + torch.autograd.grad(out, args, gy)
+    ref = [a.detach().double().requires_grad_() for a in args]
+    want = _attn_f64(*ref, scale=D ** -0.5)
+    want = (want,) + torch.autograd.grad(want, ref, gy.double())
+    for name, g, w in zip(("y",) + xattn._ARG_NAMES[:8], got, want):
+        err = (g.double() - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item(), (name, err / (1e-4 * w.abs().max().item()))
+
+
+@pytest.mark.parametrize("D", [128, 64])
+def test_cross_attn_bf16_kernel_is_deterministic(dev, D):
+    """bf16 G's output bitwise equal in two runs at (4, 16384, D)."""
+    rng = np.random.default_rng(D + 16)
+    args, _ = _attn_inputs(dev, rng, D, B=4, N=16384)
+    args = [a.to(torch.bfloat16) for a in args]
+    first = xattn.cross_attn_head1(*args, scale=D ** -0.5)
+    second = xattn.cross_attn_head1(*args, scale=D ** -0.5)
+    assert torch.equal(first, second)
+
+
+def test_cross_attn_bf16_build_fits_its_design(dev):
+    """G's bf16 body (D = 64 and 128) spills nothing, holds at most 128
+    registers a thread, and one wave holds two blocks of 8 warps on every SM,
+    a 16-row tile a warp."""
+    import re
+
+    lines = _layer_ptxas(("cross_attn.cu",))
+    tc = {name: " ".join(text) for name, text in lines.items() if "cross_attn_fwd_tc" in name}
+    assert len(tc) == 2, sorted(lines)
+    for name, joined in tc.items():
+        assert "0 bytes spill stores" in joined and "0 bytes spill loads" in joined, (name, joined)
+        assert int(re.search(r"Used (\d+) registers", joined).group(1)) <= 128, (name, joined)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for D in (128, 64):
+        assert xattn.attn_fwd_grid(D, torch.bfloat16, dev) == (2 * sms, 16, 8)
+
+
+def test_cross_attn_bf16_kernel_runs_on_tensor_cores(dev):
+    """The machine code of G's bf16 body holds tensor-core instructions
+    (HMMA in `cuobjdump -sass` of the built library)."""
+    counts = _hmma_counts()
+    if counts is None:
+        pytest.skip("needs cuobjdump (the CUDA toolkit)")
+    for kernel in ("cross_attn_fwd_tcILi128", "cross_attn_fwd_tcILi64"):
+        assert any(kernel in name and n > 0 for name, n in counts.items()), (kernel, counts)
 
 
 @pytest.mark.parametrize("D", [128, 64])

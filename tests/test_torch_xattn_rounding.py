@@ -1,12 +1,13 @@
 """The rounding contract of the bf16 kernels F and F-bwd
-(csrc/xattn_layer.cu, csrc/xattn_layer_bwd.cu) and G-bwd
-(csrc/cross_attn_bwd.cu), on the CPU: a plain-torch emulation of where they
-round (weights at bf16 values; the products on bf16 operands with fp32
+(csrc/xattn_layer.cu, csrc/xattn_layer_bwd.cu), G (csrc/cross_attn.cu) and
+G-bwd (csrc/cross_attn_bwd.cu), on the CPU: a plain-torch emulation of where
+they round (weights at bf16 values; the products on bf16 operands with fp32
 accumulation, each fp32 activation operand split into bf16 hi + lo;
 everything else in fp32; outputs rounded once to bf16) stays within the
 bounds that the card holds the kernels to against the fp32 plain version on
 the same bf16 inputs: 1e-4 (1e-5 for gradients) + 2^-8 of the largest
-element. No JAX; seconds."""
+element. And the fp32 kernels' prefix (LN1 and q in float64, q rounded once
+to fp32) on a logit spread, against float64. No JAX; seconds."""
 
 import numpy as np
 import pytest
@@ -167,3 +168,80 @@ def test_attn_bwd_bf16_rounding_points_hold_the_kernels_bound(D, case):
     for name, g, w in zip(names, got, want):
         err = (g.float() - w).abs().max().item()
         assert err <= 1e-5 + BF16_REL * w.abs().max().item(), (name, err)
+
+
+def _attn_fwd_emulated(args, scale, src):
+    """Kernel G's output as its bf16 body (D <= 128) rounds it: LN1 and q in
+    fp32 (wq at its bf16 value), the softmax in fp32 with each head's own
+    shift, o split into hi + lo against w_out at its bf16 value with fp32
+    accumulation, xc + b_out in fp32, y rounded once."""
+    x, ln_s, ln_b, wq, k, v, w_out, b_out = args
+    xc = x[..., src]
+    q = layer_norm32(xc, ln_s, ln_b, EPS) @ wq
+    logits = q[..., None] * (k * scale).transpose(1, 2)[:, None]
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    o = (e * v.transpose(1, 2)[:, None]).sum(dim=-1) / e.sum(dim=-1).clamp_min(1e-30)
+    o_h, o_l = _split(o)
+    return ((xc + b_out) + (o_h @ w_out + o_l @ w_out)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["no_perm", "perm", "spread"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_attn_fwd_bf16_rounding_points_hold_the_kernels_bound(D, case):
+    """G's bf16 rounding points against `cross_attn_head1_plain` in fp32 on
+    the same bf16 inputs, to 1e-4 + 2^-8 of the largest output (phase 4c's
+    bound); "spread" scales head 0's keys by 1e4 at N = 4096."""
+    args, _ = _inputs(D, N=4096 if case == "spread" else 1000, seed=D + 5)
+    args, scale = args[:8], D ** -0.5
+    if case == "spread":
+        args[4][..., 0] *= 1e4
+    rng = np.random.default_rng(D + 1)
+    src = torch.from_numpy(rng.permutation(D)) if case == "perm" else torch.arange(D)
+    perm = torch.zeros(D, D)
+    perm[src, torch.arange(D)] = 1.0
+    got = _attn_fwd_emulated(args, scale, src)
+    want = cross_attn_head1_plain(*args, scale=scale, perm=perm if case == "perm" else None)
+    err = (got.float() - want).abs().max().item()
+    assert err <= 1e-4 + BF16_REL * want.abs().max().item(), err
+
+
+def _attn_f64(args, gy, scale, q_fp32):
+    """The sublayer's output and eight gradients in float64; with q_fp32,
+    q's forward value rounded once to fp32 from its float64 value (the fp32
+    kernels' prefix, xattn_layer.cuh `attention_rows`)."""
+    a = [t.double().requires_grad_() for t in args]
+    x, ln_s, ln_b, wq, k, v, w_out, b_out = a
+    mu = x.mean(dim=-1, keepdim=True)
+    rs = torch.rsqrt((x * x).mean(dim=-1, keepdim=True) - mu * mu + EPS)
+    q = ((x - mu) * rs * ln_s + ln_b) @ wq
+    if q_fp32:
+        q = q + (q.float().double() - q).detach()
+    attn = torch.softmax(q[..., None] * (k * scale).transpose(1, 2)[:, None], dim=-1)
+    y = (attn * v.transpose(1, 2)[:, None]).sum(dim=-1) @ w_out + b_out + x
+    return (y,) + torch.autograd.grad(y, a, gy.double())
+
+
+@pytest.mark.parametrize("D", [64, 128, 256, 384, 512])
+def test_attn_fp32_prefix_on_a_logit_spread_holds_float64(D):
+    """The fp32 kernels' prefix (LN1 and q in float64, q rounded once to
+    fp32) with head 0's keys scaled by 1e4 at (2, 4096, D): the output and
+    all eight gradients within 1e-4 of their largest element against
+    float64 (the card test `test_cross_attn_fp32_kernels_on_a_logit_spread_
+    match_float64`'s bound). Near a tie between two of head 0's tokens the
+    gradient moves with q's absolute error, which q's own fp32 rounding
+    (relative to q, small there) leaves far under the bound."""
+    rng = np.random.default_rng(D + 15)
+
+    def f(*s, scale=1.0, off=0.0):
+        return torch.from_numpy((rng.normal(size=s) * scale + off).astype(np.float32))
+
+    args = [f(2, 4096, D), f(D, scale=0.2, off=1.0), f(D, scale=0.1), f(D, 8, scale=0.1),
+            f(2, 8, 8), f(2, 8, 8), f(8, D, scale=0.1), f(D, scale=0.1)]
+    gy = f(2, 4096, D)
+    args[4][..., 0] *= 1e4
+    got = _attn_f64(args, gy, D ** -0.5, q_fp32=True)
+    want = _attn_f64(args, gy, D ** -0.5, q_fp32=False)
+    for name, g, w in zip(("y", "dx", "dln_scale", "dln_bias", "dwq", "dk", "dv", "dw_out",
+                           "db_out"), got, want):
+        err = (g - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item(), (name, err)

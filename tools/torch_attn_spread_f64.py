@@ -1,21 +1,27 @@
 #!/usr/bin/env python
-"""Kernel G-bwd on a logit spread, against a float64 plain backward, on one
-NVIDIA GPU.
+"""Kernels G and G-bwd on a logit spread, against a float64 plain version, on
+one NVIDIA GPU.
 
-    python tools/torch_attn_spread_f64.py
+    python tools/torch_attn_spread_f64.py [--widths 64,128,256,384,512]
 
-At (2, 4096, D), D = 64, 128 and 256, with the inputs of
-tests/test_torch_kernels_cuda.py's `_attn_inputs` (numpy seed D + 15) and
-head 0's keys scaled by 1e4 (its logits ~1e3 above the other heads'), runs
-`xattn.cross_attn_head1`'s gradients (kernels G and G-bwd) in fp32 and in
-bf16, and autograd of `cross_attn_head1_plain` in fp32 and in float64 on the
-same values. Prints, per dtype and width, each of the eight gradients'
-errors in units of the card's bound (fp32: 1e-4, bf16: 2^-8 of the leaf's
-largest element in float64) as kernel-f64 / plain32-f64 / kernel-plain32:
-how far the kernel and the fp32 plain version each lie from the float64
-result, and from each other (what the card tests compare).
+At (2, 4096, D), with the inputs of tests/test_torch_kernels_cuda.py's
+`_attn_inputs` (numpy seed D + 15) and head 0's keys scaled by 1e4 (its
+logits ~1e3 above the other heads'), runs `xattn.cross_attn_head1` (kernel
+G) and its gradients (kernel G-bwd) in fp32 and in bf16, and
+`cross_attn_head1_plain` and its autograd gradients in fp32, and the same
+arithmetic in float64 (chip_smoke.py's `attn_f64`: the plain version's own
+LayerNorm, `layer_norm32`, computes in fp32 whatever its input's dtype,
+which puts an error of its own into a reference taken from it on this
+case), on the same values. Prints, per dtype and width, the output's error and each
+of the eight gradients' errors in units of the card's bound (fp32: 1e-4,
+bf16: 2^-8 of the leaf's largest element in float64) as
+kernel-f64 / plain32-f64 / kernel-plain32: how far the kernel and the fp32
+plain version each lie from the float64 result, and from each other (what
+the card tests compare). The last line gives the worst leaf per dtype and
+width, kernel against float64.
 """
 
+import argparse
 import os
 import sys
 
@@ -24,9 +30,10 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from chip_smoke import attn_f64  # noqa: E402
 from smow_net_tpu_torch.ops import xattn  # noqa: E402
 
-NAMES = ("x", "ln_s", "ln_b", "wq", "k", "v", "wo", "bo")
+NAMES = ("y", "x", "ln_s", "ln_b", "wq", "k", "v", "wo", "bo")
 
 
 def inputs(dev, D, B=2, N=4096, h=8, M=8):
@@ -44,32 +51,45 @@ def inputs(dev, D, B=2, N=4096, h=8, M=8):
     return args, gy
 
 
+def outputs(fn, args, gy):
+    """(output, its eight input gradients) of `fn` at `args`."""
+    out = fn(*args, scale=args[0].shape[-1] ** -0.5)
+    return (out.detach(),) + torch.autograd.grad(out, args, gy)
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--widths", default="64,128,256,384,512")
+    widths = [int(w) for w in parser.parse_args().widths.split(",")]
     if not torch.cuda.is_available():
         sys.exit("torch_attn_spread_f64: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    for D in (64, 128, 256):
+    worst = {}
+    for D in widths:
         args, gy = inputs(dev, D)
         for dt in (torch.float32, torch.bfloat16):
             a = [t.to(dt).requires_grad_() for t in args]
-            g = gy.to(dt)
-            got = torch.autograd.grad(xattn.cross_attn_head1(*a, scale=D ** -0.5), a, g)
+            got = outputs(xattn.cross_attn_head1, a, gy.to(dt))
 
-            def plain(dtype):
+            def plain(fn, dtype):
                 r = [t.detach().to(dtype).requires_grad_() for t in a]
-                return torch.autograd.grad(
-                    xattn.cross_attn_head1_plain(*r, scale=D ** -0.5), r, g.to(dtype))
+                return outputs(fn, r, gy.to(dt).to(dtype))
 
-            p32, p64 = plain(torch.float32), plain(torch.float64)
+            p32 = plain(xattn.cross_attn_head1_plain, torch.float32)
+            p64 = plain(attn_f64, torch.float64)
             rel = 1e-4 if dt == torch.float32 else 2.0 ** -8
-            cells = []
+            cells, errs = [], []
             for name, k, w, v in zip(NAMES, got, p32, p64):
                 bound = rel * v.abs().max().item()
                 err = lambda u, t: (u.double() - t.double()).abs().max().item() / bound
+                errs.append((err(k, v), name))
                 cells.append(f"{name} {err(k, v):.2f}/{err(w, v):.2f}/{err(k, w):.2f}")
+            worst[f"D={D} {str(dt)[6:]}"] = max(errs)
             print(f"D={D} {str(dt)[6:]} kernel-f64/plain32-f64/kernel-plain32: "
                   + "  ".join(cells), flush=True)
+    print("worst leaf, kernel-f64 in units of the bound: "
+          + "  ".join(f"{k} {v:.2f} ({n})" for k, (v, n) in worst.items()), flush=True)
 
 
 if __name__ == "__main__":

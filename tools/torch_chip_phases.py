@@ -60,7 +60,8 @@ alone (`kernel_only_ms`, the profiler).
 per-block records) at (16, 16384, D) bf16, D = 128 (phases 4c and 4d's
 timed shape) and 64, on inputs made on the card from a seed: the wrapper
 from a CUDA graph of 20 calls (`graph_ms`) and the kernel alone
-(`launch_ms`, CUDA events around each launch, over 20 calls).
+(`launch_ms`, CUDA events around each launch, over 20 calls). Run it per
+tree in turns (parent, change, change, parent) for G's and G-bwd's A/B.
 
 For an A/B of two trees on one card, call it once per tree in turns
 (parent, change, change, parent).
@@ -317,7 +318,8 @@ def main() -> None:
         if {"4", "4b", "layer"} & chosen:
             kernels = ("layer_",)
         elif {"4c", "4d", "attn"} & chosen:
-            kernels = ("cross_attn_bwd_tc", "cross_attn_bwd_kernel")
+            kernels = ("cross_attn_fwd_tc", "cross_attn_fwd_kernel", "cross_attn_bwd_tc",
+                       "cross_attn_bwd_kernel")
         else:
             kernels = ("scan_fwd_kernel", "scan_bwd_kernel", "token_scatter_fwd_kernel",
                        "token_scatter_bwd_kernel")
