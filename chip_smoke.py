@@ -173,9 +173,10 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      `selective_scan_plain`: N in {1, 4, 8, 16, 32}, softplus on and off,
      fp32 y and all seven gradients; the calls kernels H and I refuse (N !=
      16, no softplus, fp16, float64) through both contracts; J alone at
-     (B, 62500, 1024) fp32; the A/B of J's route against H at L = 62500,
-     Dch 64, G 2, N 16, forward and forward + backward, bf16; H and I at
-     70000 rows, forward and backward
+     (B, 62500, 1024) fp32 (one segment) and at (2, 62500, 256) (16
+     strips: chained segments), both directions, bitwise twice; the A/B
+     of J's route against H at L = 62500, Dch 64, G 2, N 16, forward and
+     forward + backward, bf16; H and I at 70000 rows, forward and backward
   25. the kernels' JSON line, the card's line, then the result line last
 
 Bounds: fp32 kernels against fp32 plain versions differ only in summation
@@ -2170,10 +2171,31 @@ def phase_scan_states(dev) -> tuple:
                   ms=cuda_ms(lambda: scan.scan_states(dA, dBu), iters=5, warmup=1),
                   plain_ms=cuda_ms(lambda: scan.scan_states_plain(dA, dBu), iters=1, warmup=1),
                   **bound(3 * dA.numel() * 4, 2 * dA.numel()))
-    log(f"  J alone, fp32 ({B}, {L}, {G * Cg * N}): kernel {result['ms']:.4f} ms, plain "
+    rev_ms = cuda_ms(lambda: scan.scan_states(dA, dBu, True), iters=5, warmup=1)
+    log(f"  J alone, fp32 ({B}, {L}, {G * Cg * N}), S = {scan.states_seg_count(*dA.shape)}: "
+        f"kernel {result['ms']:.4f} ms forward, {rev_ms:.4f} reverse, plain "
         f"{result['plain_ms']:.4f} ms, bound {result['bound_ms']:.4f} ms ({result['bound_by']}: "
-        "12 bytes per element)")
+        f"12 bytes per element; {result['bound_ms'] / result['ms']:.1%} of it forward)")
     del dA, dBu
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the narrow long-L shape (L = 250^2, N = 4, Dch = 64, batch 2): 16 strips
+    # of 32 lanes, cut into chained segments; both directions, bitwise twice
+    Bn, Kn = 2, 256
+    dA = torch.exp(-torch.rand(Bn, L, Kn, device=dev, generator=g) * 0.1)
+    dBu = torch.randn(Bn, L, Kn, device=dev, generator=g)
+    Sn, bound_n = scan.states_seg_count(Bn, L, Kn), 12 * dA.numel() / HBM_BYTES_PER_S * 1e3
+    for reverse in (False, True):
+        h = scan.scan_states(dA, dBu, reverse)
+        check(f"J ({Bn}, {L}, {Kn}) fp32 states, S = {Sn}, reverse={reverse}", h,
+              scan.scan_states_plain(dA, dBu, reverse), 0.0, 1e-5)
+        require(torch.equal(h, scan.scan_states(dA, dBu, reverse)),
+                f"J ({Bn}, {L}, {Kn}) reverse={reverse}: two runs differ")
+        ms = cuda_ms(lambda: scan.scan_states(dA, dBu, reverse), iters=5, warmup=1)
+        log(f"  (finding) J alone, fp32 ({Bn}, {L}, {Kn}), S = {Sn}, "
+            f"{'reverse' if reverse else 'forward'}: kernel {ms:.4f} ms, bound {bound_n:.4f} ms "
+            f"({bound_n / ms:.1%} of it); bitwise equal twice")
+    del dA, dBu, h
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2938,7 +2960,7 @@ def main() -> None:
             cdm_train["selective_scan_adjcarry"], seg["selective_scan_adjcarry"]),
         row("token_scatter_bwd", "token_scatter.cu", "warp.py:807",
             fused_launches["token_scatter_bwd"], dbwd),
-        row("scan_states", "scan_states.cu", "scan.py:122", j_launches, j),
+        row("scan_states", "scan_states.cu", "scan.py:61", j_launches, j),
         row("cross_attn_fwd", "cross_attn.cu", "xattn.py:211", g_launches, g),
         row("cross_attn_bwd", "cross_attn_bwd.cu", "xattn.py:234", gb_launches, gb),
     ]

@@ -11,10 +11,10 @@ import torch
 
 __all__ = ["get_model", "list_models"]
 
-_MAMBA = {"rs_mamba": "ROADMAP.md queue 4 item 1 (rs_mamba, cross_scan8)"}
+_MAMBA = {"rs_mamba": "ROADMAP.md queue 1 item 3 (rs_mamba, cross_scan8)"}
 _ZOO = ("fc_ef", "snunet", "dtcdscn", "ifn", "bit", "pa_former", "afcf3d",
         "seifnet", "tfi_gr", "a2net", "elgcnet", "changeformer", "scratchformer")
-_LATER = {**{n: "ROADMAP.md queue 4 item 5 (non-Mamba zoo)" for n in _ZOO}, **_MAMBA}
+_LATER = {**{n: "ROADMAP.md queue 1 item 4 (non-Mamba zoo)" for n in _ZOO}, **_MAMBA}
 
 
 def list_models():

@@ -13,7 +13,8 @@ per kernel, the launches made by the op wrappers (ops/warp.py,
 ops/xattn.py, ops/scan.py): a run can read it to show it went through the
 kernels. The selective scan's sweeps over the flat (B, L, G * Cg) layout
 (kernel H) count as `selective_scan_{fwd,ckpt,bwd}_flat`, the general
-scan's state recurrence (kernel J) as `scan_states`, the decoder layer's
+scan's state recurrence (kernel J, either of its two C entries) as
+`scan_states`, the decoder layer's
 kernels F and F-bwd as `xattn_layer_{fwd,bwd}` and its attention sublayer's
 G and G-bwd as `cross_attn_{fwd,bwd}`.
 """
@@ -63,6 +64,7 @@ _SIGNATURES = {
     "selective_scan_bwd_occupancy": [_I, _I, _P, _P],
     "selective_scan_adjcarry": [_P] * 6 + [_I] * 7 + [_P],
     "scan_states": [_P] * 3 + [_I] * 4 + [_P],
+    "scan_states_seg": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 launches: collections.Counter = collections.Counter()

@@ -32,7 +32,9 @@ takes the general route, `_StatesScan` (the JAX package's
 exp(dt A) and dBu = dt u B as fp32 (B, L, D*N) tensors, kernel J
 (`scan_states`) walks h_t = dA_t h_{t-1} + dBu_t, and torch takes y = C h
 + D u; the backward runs J twice (h again, and the reverse adjoint) and
-torch's einsums. The grouped layout is viewed as the flat one there.
+torch's einsums. The grouped layout is viewed as the flat one there. Where
+too few 32-lane strips would walk, J cuts L into segments, one chained
+pass (`states_seg_count`, csrc/scan_states.cu).
 
 The segmented path (`_fwd_segmented`, `_bwd_segmented`; scan_fused.py:630,
 :657) cuts each row's L steps into S segments, so the card walks rows*S
@@ -66,8 +68,8 @@ from . import _kernels
 __all__ = ["selective_scan", "selective_scan_plain", "selective_scan_step",
            "cross_selective_scan", "cross_selective_scan_plain", "softplus", "seg_count",
            "fwd_segmented", "bwd_segmented", "scan_carry_plain", "scan_adjcarry_plain",
-           "scan_ckpt_plain", "scan_states", "scan_states_plain", "bwd_partials",
-           "fwd_occupancy", "bwd_occupancy"]
+           "scan_ckpt_plain", "scan_states", "scan_states_plain", "states_seg_count",
+           "bwd_partials", "fwd_occupancy", "bwd_occupancy"]
 
 N_STATE = 16        # d_state built into the kernels (kN in csrc/selective_scan.cu)
 CKPT_CHUNK = 16     # I-ckpt's checkpoint interval (kChunk)
@@ -90,6 +92,20 @@ SEG_MIN_L = 4096
 SEG_TARGET_BLOCKS = 4096
 SEG_MIN_K = 1024
 
+# Kernel J's segments (`states_seg_count`): one warp walks a strip of 32
+# lanes (STATES_LANES) of one batch row. With STATES_MIN_STRIPS strips or
+# more each streams its whole row; with fewer, L is cut into as few
+# segments as hold at most STATES_SEG_STEPS steps each (kSegSteps in
+# csrc/scan_states.cu: the tile a warp holds whole), of whole chunks of
+# STATES_CHUNK steps (kSteps). On an H100 one segment took ~1.88 ms at
+# L = 62500 up to 192 strips (each warp's own pace) and the segments
+# ~0.0108 ms a strip, so they cross near 176 (`tools/torch_chip_phases.py
+# states_strips`).
+STATES_LANES = 32
+STATES_CHUNK = 64
+STATES_SEG_STEPS = 192
+STATES_MIN_STRIPS = 176
+
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """jax.nn.softplus: log1p(exp(-|x|)) + max(x, 0), finite at both ends."""
@@ -108,6 +124,16 @@ def seg_count(rows: int, L: int, Cg: int) -> int:
            and L // (S * 2) >= SEG_MIN_K):
         S *= 2
     return S
+
+
+def states_seg_count(B: int, L: int, K: int) -> int:
+    """Segments per strip for kernel J over (B, L, K) operands (module
+    constants above); 1 = each warp streams its strip from start to end.
+    The kernel cuts L into segments of ceil(L / S) steps rounded up to
+    whole chunks, which make exactly S."""
+    if B * -(-K // STATES_LANES) >= STATES_MIN_STRIPS:
+        return 1
+    return -(-L // STATES_SEG_STEPS)
 
 
 # ---------------------------------------------------------------- plain scan
@@ -709,8 +735,19 @@ def scan_states(dA: torch.Tensor, dBu: torch.Tensor, reverse: bool = False) -> t
     dA, dBu = dA.contiguous(), dBu.contiguous()
     h = torch.empty_like(dA)
     B, L = dA.shape[:2]
-    _kernels.call("scan_states", dA.data_ptr(), dBu.data_ptr(), h.data_ptr(), B, L,
-                  dA[0, 0].numel(), int(reverse), _kernels.stream_handle(dA.device))
+    K = dA[0, 0].numel()
+    S = states_seg_count(B, L, K)
+    stream = _kernels.stream_handle(dA.device)
+    if S == 1:
+        _kernels.call("scan_states", dA.data_ptr(), dBu.data_ptr(), h.data_ptr(), B, L, K,
+                      int(reverse), stream)
+        return h
+    tickets = B * -(-K // STATES_LANES) * S
+    flags = torch.zeros(tickets + 1, dtype=torch.int32, device=dA.device)
+    records = torch.empty(tickets, 3, STATES_LANES, dtype=torch.float32, device=dA.device)
+    _kernels.call("scan_states_seg", dA.data_ptr(), dBu.data_ptr(), h.data_ptr(),
+                  records.data_ptr(), flags.data_ptr(), B, L, K, S, int(reverse), stream,
+                  label="scan_states")
     return h
 
 

@@ -1137,19 +1137,70 @@ def test_flat_scan_raises_on_what_the_kernels_do_not_take(dev):
     _close(y, scan.selective_scan_plain(*big, delta_softplus=True), 1e-6, 1e-5)
 
 
+# (B, L, K) on the segments the wrapper chooses: the narrow long-L shape cut
+# to L = 20000 (105 segments), K = 33 (rows not 16-byte aligned: 4-byte
+# copies) at 6 strips (6 segments) and at 180 (one segment streamed through
+# the ring), 100 (a last strip of 4 lanes), 1024 at 64 strips (4 segments)
+# and at 192 (one, just above STATES_MIN_STRIPS), L = 1 and 7, L not a
+# multiple of the segment or of the chunk (200: 128 + 72 steps; 385: 192 +
+# 192 + 1), rows 4 bytes past a 16-byte boundary (4-byte copies); one strip
+# (a block's two warps walk consecutive segments of it) and three (a
+# block's tickets straddle two segments)
+_STATES_CASES = {"narrow": (2, 20000, 256), "k33": (3, 1000, 33),
+                 "k33_stream": (90, 400, 33), "k100": (3, 1000, 100),
+                 "k1024": (2, 700, 1024), "k1024_stream": (6, 700, 1024), "l1": (2, 1, 64),
+                 "l7": (2, 7, 33), "l200_seg": (2, 200, 64), "l385_seg": (1, 385, 64),
+                 "misaligned": (2, 1000, 64), "one_strip": (1, 2000, 32),
+                 "three_strips": (3, 1000, 32)}
+
+
+def _states_operands(dev, B, L, K, seed, misaligned=False, decay=1.0):
+    g = torch.Generator(dev).manual_seed(seed)
+    dA = torch.exp(-decay * torch.rand(B, L, K, device=dev, generator=g))
+    dBu = torch.randn(B, L, K, device=dev, generator=g)
+    if misaligned:      # contiguous, 4 bytes past a 16-byte boundary
+        dA, dBu = [torch.cat([t.new_zeros(1), t.flatten()])[1:].view(B, L, K) for t in (dA, dBu)]
+        assert dA.data_ptr() % 16 == 4 and dA.is_contiguous()
+    return dA, dBu
+
+
 @pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
-def test_scan_states_kernel_matches_plain(dev, reverse):
-    """Kernel J over fp32 (B, L, D*N) operands, L = 1000 (not a multiple of
-    its 16-step load batches), forward and reverse: 1e-5 of the largest
-    state (fp32, a sequential walk against a chunked doubling scan)."""
-    g = torch.Generator(dev).manual_seed(40 + reverse)
-    dA = torch.exp(-torch.rand(3, 1000, 100, device=dev, generator=g))
-    dBu = torch.randn(3, 1000, 100, device=dev, generator=g)
+@pytest.mark.parametrize("case", list(_STATES_CASES))
+def test_scan_states_kernel_matches_plain(dev, case, reverse):
+    """Kernel J over fp32 (B, L, K) operands, forward and reverse, on the
+    shipped segment count: one launch a call, 1e-5 of the largest state
+    (fp32, a sequential walk with chained segment seeds against a chunked
+    doubling scan)."""
+    B, L, K = _STATES_CASES[case]
+    dA, dBu = _states_operands(dev, B, L, K, 40 + reverse, misaligned=case == "misaligned")
     before = _kernels.launches["scan_states"]
     h = scan.scan_states(dA, dBu, reverse)
     torch.cuda.synchronize()
     assert _kernels.launches["scan_states"] == before + 1
     _close(h, scan.scan_states_plain(dA, dBu, reverse), 1e-6, 1e-5)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+def test_scan_states_kernel_bitwise_twice(dev, reverse):
+    """J's chained segments give the same bits in two runs: each seed is
+    the chain's own FMAs in segment order wherever the look-back stopped.
+    At (2, 20000, 256) (105 segments a strip) and (13, 2000, 1024) (one)."""
+    for B, L, K, seed in ((2, 20000, 256, 42), (13, 2000, 1024, 43)):
+        dA, dBu = _states_operands(dev, B, L, K, seed + reverse)
+        first = scan.scan_states(dA, dBu, reverse)
+        for _ in range(2):
+            assert torch.equal(scan.scan_states(dA, dBu, reverse), first)
+
+
+def test_scan_states_kernel_underflowing_segments(dev):
+    """Decays so small that each segment's product of dA underflows to 0
+    (every seed's weight vanishes), and decays near 1 (the seeds carry
+    far): both against the plain version at 1e-5."""
+    for decay in (100.0, 1e-3):
+        dA, dBu = _states_operands(dev, 2, 3000, 64, 44, decay=decay)
+        for reverse in (False, True):
+            h = scan.scan_states(dA, dBu, reverse)
+            _close(h, scan.scan_states_plain(dA, dBu, reverse), 1e-6, 1e-5)
 
 
 @pytest.mark.parametrize("N", [4, 32])

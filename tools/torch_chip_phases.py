@@ -6,6 +6,7 @@
     python tools/torch_chip_phases.py --tree PATH 4 4b layer
     python tools/torch_chip_phases.py --tree PATH adjcarry scatter
     python tools/torch_chip_phases.py --tree PATH 4c 4d attn
+    python tools/torch_chip_phases.py --tree PATH states route
 
 Builds the kernels of the checkout it runs from (or of --tree), sets the
 fp32 comparisons' flags as chip_smoke.py does (TF32 off) and runs the named
@@ -63,6 +64,22 @@ from a CUDA graph of 20 calls (`graph_ms`) and the kernel alone
 (`launch_ms`, CUDA events around each launch, over 20 calls). Run it per
 tree in turns (parent, change, change, parent) for G's and G-bwd's A/B.
 
+`states` times kernel J (`scan.scan_states`) at (13, 62500, 1024), the
+shape of phase 24's timing (416 strips of 32 lanes), and at (2, 62500, 256)
+(L = 250^2 at N = 4, Dch = 64, batch 2: 16 strips), fp32, forward and
+reverse, on inputs made on the card from a seed: the wrapper (CUDA events
+over 5 calls: its scratch included) and the kernel alone (`launch_ms`, over
+5 calls), beside the byte bound (12 bytes per element over 3.35 TB/s).
+`states_strips` times J in chained segments against one segment a strip
+(`scan.STATES_MIN_STRIPS` set to 0 or past every count for the calls) at
+L = 62500 and 16 to 416 strips, forward: the A/B that sets
+`scan.STATES_MIN_STRIPS`.
+
+`route` is phase 24's A/B alone: the general route (`scan._StatesScan`: J
+once forward, twice backward) against kernel H's (`scan._FlatScan`) on the
+same bf16 inputs at L = 62500, Dch 64, G 2, N 16 and phase 24's batch,
+forward and forward + backward (CUDA events over 3 and 2 calls).
+
 For an A/B of two trees on one card, call it once per tree in turns
 (parent, change, change, parent).
 """
@@ -76,7 +93,8 @@ import sys
 import time
 
 PHASES = ["3", "3b", "3c", "3d", "3e", "3f", "3g", "4", "4b", "4c", "4d", "13", "14", "19",
-          "20", "fwd", "bwd", "layer", "adjcarry", "scatter", "attn"]
+          "20", "fwd", "bwd", "layer", "adjcarry", "scatter", "attn", "states", "states_strips",
+          "route"]
 # the sweeps each timing mode takes
 SWEEPS = {"fwd": ("I-fwd", "I-ckpt", "H-fwd", "H-ckpt", "carry"), "bwd": ("I-bwd", "H-bwd")}
 
@@ -289,6 +307,105 @@ def attn_times(dev) -> dict:
     return out
 
 
+def _states_entry(scan, B, L, K) -> str:
+    """The C entry that launches J at this shape (a parent tree has one)."""
+    seg = getattr(scan, "states_seg_count", None)
+    return "scan_states_seg" if seg is not None and seg(B, L, K) > 1 else "scan_states"
+
+
+def states_times(dev) -> dict:
+    """Kernel J at (13, 62500, 1024) and (2, 62500, 256), fp32, forward and
+    reverse: the wrapper and the kernel alone (see the module's docstring)."""
+    import torch
+
+    from smow_net_tpu_torch.ops import scan
+
+    cs = own_chip_smoke()
+    gen = torch.Generator(dev).manual_seed(95)
+    out = {}
+    for B, L, K in ((13, 62500, 1024), (2, 62500, 256)):
+        dA = torch.exp(-0.1 * torch.rand(B, L, K, device=dev, generator=gen))
+        dBu = torch.randn(B, L, K, device=dev, generator=gen)
+        entry = _states_entry(scan, B, L, K)
+        bound_ms = 12 * dA.numel() / 3.35e12 * 1e3
+        for reverse in (False, True):
+            fn = lambda: scan.scan_states(dA, dBu, reverse)
+            t = cs.cuda_ms(fn, iters=5, warmup=1)
+            tk = cs.launch_ms(fn, entry, iters=5)
+            name = f"J ({B}, {L}, {K}) {'reverse' if reverse else 'forward'}"
+            print(f"  {name} [{entry}]: wrapper {t:.4f} ms, kernel {tk:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_ms / tk:.1%} of it)", flush=True)
+            out[name], out[name + " kernel"] = t, tk
+        del dA, dBu
+        torch.cuda.empty_cache()
+    return out
+
+
+def states_strips_times(dev) -> dict:
+    """J in chained segments against one segment a strip at L = 62500, 16
+    to 416 strips of 32 lanes, forward: the kernel alone."""
+    import torch
+
+    from smow_net_tpu_torch.ops import scan
+
+    cs = own_chip_smoke()
+    gen = torch.Generator(dev).manual_seed(96)
+    out = {}
+    L = 62500
+    shipped = scan.STATES_MIN_STRIPS
+    for strips in (16, 64, 128, 160, 192, 256, 416):
+        B, K = strips // 8, 256
+        dA = torch.exp(-0.1 * torch.rand(B, L, K, device=dev, generator=gen))
+        dBu = torch.randn(B, L, K, device=dev, generator=gen)
+        row = []
+        try:
+            for segmented in (False, True, True, False):
+                scan.STATES_MIN_STRIPS = strips + 1 if segmented else 0
+                entry = "scan_states_seg" if segmented else "scan_states"
+                row.append(cs.launch_ms(lambda: scan.scan_states(dA, dBu), entry, iters=3))
+                if segmented:
+                    S = scan.states_seg_count(B, L, K)
+        finally:
+            scan.STATES_MIN_STRIPS = shipped
+        bound_ms = 12 * dA.numel() / 3.35e12 * 1e3
+        print(f"  J ({B}, {L}, {K}), {strips} strips: S = 1 / {S} / {S} / 1: "
+              + " / ".join(f"{t:.4f}" for t in row) + f" ms (bound {bound_ms:.4f}; shipped S "
+              f"{scan.states_seg_count(B, L, K)})", flush=True)
+        out[f"{strips} strips S=1"] = (row[0] + row[3]) / 2
+        out[f"{strips} strips S={S}"] = (row[1] + row[2]) / 2
+        del dA, dBu
+        torch.cuda.empty_cache()
+    return out
+
+
+def route_times(dev) -> dict:
+    """Phase 24's A/B of the general route against H's, bf16 (see the
+    module's docstring)."""
+    import torch
+
+    from smow_net_tpu_torch.ops import scan
+
+    cs = own_chip_smoke()
+    L, G, Cg, N = 62500, 2, 32, 16
+    torch.cuda.empty_cache()
+    B = max(1, min(16, int(0.5 * torch.cuda.mem_get_info()[0] / (12 * L * G * Cg * N * 4))))
+    args = cs._flat_args(dev, B, L, G, Cg, 74, torch.bfloat16)
+    gen = torch.Generator(dev).manual_seed(73)
+    gy = torch.randn(args[0].shape, device=dev, generator=gen).to(torch.bfloat16)
+    ref = [a.detach().requires_grad_() for a in args]
+    routes = {"H": lambda *a: scan._FlatScan.apply(*a),
+              "J": lambda *a: scan._StatesScan.apply(*a, True)}
+    out = {}
+    for k, fn in routes.items():
+        with torch.no_grad():
+            t = cs.cuda_ms(lambda: fn(*args), iters=3, warmup=1)
+        tb = cs.cuda_ms(lambda: torch.autograd.grad(fn(*ref), ref, gy), iters=2, warmup=1)
+        print(f"  {k}'s route, bf16 ({B}, {L}, {G * Cg}), N {N}: forward {t:.4f} ms, "
+              f"forward + backward {tb:.4f} ms", flush=True)
+        out[f"{k} fwd"], out[f"{k} fwd+bwd"] = t, tb
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=".", help="checkout whose kernels to build and run")
@@ -317,6 +434,8 @@ def main() -> None:
         chosen = set(args.phases)
         if {"4", "4b", "layer"} & chosen:
             kernels = ("layer_",)
+        elif {"states", "states_strips", "route"} >= chosen:
+            kernels = ("scan_states_kernel",)
         elif {"4c", "4d", "attn"} & chosen:
             kernels = ("cross_attn_fwd_tc", "cross_attn_fwd_kernel", "cross_attn_bwd_tc",
                        "cross_attn_bwd_kernel")
@@ -339,7 +458,8 @@ def main() -> None:
               "4c": lambda d: cs.phase_kernel_g(d)[0], "4d": lambda d: cs.phase_kernel_g_bwd(d)[0],
               "fwd": lambda d: sweep_times(d, "fwd"), "bwd": lambda d: sweep_times(d, "bwd"),
               "layer": layer_times, "adjcarry": adjcarry_times, "scatter": scatter_times,
-              "attn": attn_times}
+              "attn": attn_times, "states": states_times, "states_strips": states_strips_times,
+              "route": route_times}
     for name in args.phases:
         result = phases[name](dev)
         if isinstance(result, dict):
