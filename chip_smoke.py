@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Drive the PyTorch/CUDA port of SMOW_Net, SMOW_Net_LW, ChangeMamba and
-CD-Mamba, and its general selective scan, on one NVIDIA GPU and check it.
+CD-Mamba, its general selective scan, and its train and test CLIs from PNG
+files, on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
 
@@ -70,8 +71,8 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      4096, D), every built D, against the plain arithmetic in float64
      (`attn_f64`): the output and all eight gradients within 1e-4 of their
      largest element. No later phase may launch G or G-bwd: every counter
-     reset (phases 5, 7, 8b, 9, 11, 15, 17, 21, 23, 24) and phase 25 check
-     it
+     reset (phases 5, 7, 8b, 9, 11, 15, 17, 21, 23, 24, 26) and phase 25
+     check it
   5. main path: get_model("smow_net") with numpy-seeded weights in bf16,
      make_eval_step over 3 batches of 16 x 256^2 pairs; each kernel's launch
      count must rise by exactly one per batch; then ms/batch (CUDA events)
@@ -177,6 +178,23 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      strips: chained segments), both directions, bitwise twice; the A/B
      of J's route against H at L = 62500, Dch 64, G 2, N 16, forward and
      forward + backward, bf16; H and I at 70000 rows, forward and backward
+  26. (before 25's results) the CLIs from PNG files: the synthetic set
+     at 256^2 (32 train, 16 val, 16 test) written by `data/png.py`;
+     `cli.train` on SMOW_Net (bf16, batch 16, 8 loader threads, 2 epochs,
+     --profile): E, C, A-bwd, F and F-bwd exactly once per train step, D
+     and F (fp32) once per val batch, a finite loss, train.txt, val.txt and
+     metrics.jsonl with a line per epoch, `best` and `last`, and a profiler
+     trace that names those kernels' device functions; `--resume last` to
+     epoch 3: the resume line, the parameters, BN buffers, optimizer count
+     (4) and moments bitwise `last`'s before the first step, epoch 3 in
+     train.txt; `cli.test` on `best` on the kernel path and the plain path:
+     D and F 16 times on the kernel path, none on the plain one, confusion
+     matrices within 1e-4 of the pixel count, and the 16 PNGs decoded (by
+     `data/png.py`) to `colorize` of a prediction whose pixel classes sum
+     to the matrix; then, with the card's name and power limit, the
+     loader's batches/s (the engine, through `prefetch_to_device`, and PNG
+     decode alone), the CLI's ms per train step beside phase 7's and its
+     fp32 validation's ms per batch
   25. the kernels' JSON line, the card's line, then the result line last
 
 Bounds: fp32 kernels against fp32 plain versions differ only in summation
@@ -228,9 +246,11 @@ from __future__ import annotations
 import collections
 import contextlib
 import gc
+import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -2627,6 +2647,7 @@ def phase_train(dev, name: str, phase: int, rounds: int, per_round: int = 5,
 
     torch.cuda.reset_peak_memory_stats()
     medians = alternate_rounds(round_ms, rounds, "step", per_round, plain)
+    STEP_MEDIANS[name] = medians["kernel"]
     log(f"  peak device memory, both paths' rounds: "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
@@ -2650,6 +2671,10 @@ def phase_train(dev, name: str, phase: int, rounds: int, per_round: int = 5,
                                 max_name_column_width=100))
     return launches
 
+
+# each model's kernel-path median ms per bf16 train step on one repeated batch
+# (phases 7, 11, 17, 23), for phase 26's comparison with the train CLI's step
+STEP_MEDIANS = {}
 
 FUSED_TRAIN_KERNELS = dict.fromkeys(("token_scatter_fwd", "token_scatter_bwd", "xattn_layer_fwd",
                                      "xattn_layer_bwd"), 1)
@@ -2823,6 +2848,211 @@ def phase_fp32_train_grads(dev, name: str, phase, **model_kwargs) -> None:
             "largest element (bound 1e-3: fp32 sums in other orders and atomics)")
 
 
+# the device functions of SMOW_Net's bf16 train-step kernels (E, C, A-bwd, F,
+# F-bwd), which the train CLI's profiler trace must name
+CLI_TRACE_FUNCTIONS = ("token_scatter_fwd_kernel", "grid_sample_t_vjp_kernel",
+                          "grid_sample_bwd_kernel", "layer_fwd_tc", "layer_bwd_tc")
+# the four colours of `cli.test.colorize` as the PNG stores them (RGB)
+VIS_RGB = {(0, 0, 0): (0, 0), (255, 255, 255): (1, 1), (255, 0, 0): (1, 0), (0, 255, 0): (0, 1)}
+
+
+def _cli(fn, *args):
+    """Run a CLI entry with its standard output captured, then log it."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    for line in buf.getvalue().splitlines():
+        log("    | " + line)
+    return out, buf.getvalue()
+
+
+def _watch(run, timings) -> None:
+    """Wrap the CLI's train and eval steps: each call must launch exactly
+    SMOW_Net's train kernels (E, C, A-bwd, F, F-bwd) or eval kernels (D, F
+    in fp32) once; its host time to the end of its device work is logged
+    (this measurement synchronises after each call)."""
+    from smow_net_tpu_torch.ops import _kernels
+
+    def watched(step, expect, key):
+        def call(*args):
+            before = dict(_kernels.launches)
+            t0 = time.perf_counter()
+            timings[key + "_starts"].append(t0)
+            out = step(*args)
+            torch.cuda.synchronize()
+            timings[key].append((time.perf_counter() - t0) * 1e3)
+            ran = {n: c - before.get(n, 0) for n, c in _kernels.launches.items()
+                   if c != before.get(n, 0)}
+            require(ran == expect, f"the CLI's {key} step launched {ran}, not {expect}")
+            return out
+        return call
+
+    run.train_step = watched(run.train_step, TRAIN_KERNELS["smow_net"], "train")
+    run.eval_step = watched(run.eval_step, EVAL_KERNELS["smow_net"], "val")
+
+
+def _check_outputs(out: str, epochs: int, log_text: str) -> None:
+    lines = {n: open(os.path.join(out, n)).read().splitlines()
+             for n in ("train.txt", "val.txt", "metrics.jsonl")}
+    require(all(len(v) == epochs for v in lines.values()),
+            f"train.txt, val.txt and metrics.jsonl hold {epochs} lines each: "
+            f"{ {n: len(v) for n, v in lines.items()} }")
+    require(lines["train.txt"][-1].startswith(f"Epoch: {epochs}, IoU: "),
+            f"epoch {epochs} lands in train.txt: {lines['train.txt'][-1]}")
+    records = [json.loads(r) for r in lines["metrics.jsonl"]]
+    losses = [float(x) for x in re.findall(r"Loss: (\S+)", log_text)]
+    require(losses and np.isfinite(losses).all()
+            and np.isfinite([r["train_loss"] for r in records]).all(),
+            f"the train loss is finite: printed {losses}")
+    require(all(os.path.isfile(os.path.join(out, n)) for n in ("best", "last")),
+            "`best` and `last` are written")
+
+
+def _check_visualisations(vis: str, data: str, cm: np.ndarray) -> None:
+    """Every PNG the test CLI wrote decodes (through png.py) to `colorize` of
+    a prediction: only its four colours; the ground truth it shows is the
+    label file's, and its TP, FP, FN and TN pixels sum to the CLI's
+    confusion matrix."""
+    from smow_net_tpu_torch.cli.test import colorize
+    from smow_net_tpu_torch.data import png
+
+    names = open(os.path.join(data, "list", "test.txt")).read().split()
+    counts = np.zeros((2, 2))
+    for name in names:
+        rgb = np.rint(png.read_png(os.path.join(vis, name)) * 255).astype(np.uint8)
+        gt = (png.read_png(os.path.join(data, "label", name)) > 0.5).astype(np.uint8)
+        pred = np.zeros_like(gt)
+        seen = np.zeros(gt.shape, bool)
+        for colour, (p, g) in VIS_RGB.items():
+            at = (rgb == colour).all(-1)
+            pred[at] = p
+            seen |= at
+            require(bool((gt[at] == g).all()), f"{name}: a {colour} pixel over ground truth "
+                    f"{1 - g}")
+            counts[g, p] += at.sum()
+        require(bool(seen.all()), f"{name}: pixels outside the four colours")
+        require(np.array_equal(rgb, colorize(pred, gt)[..., ::-1]),
+                f"{name}: the file is not colorize(prediction, ground truth)")
+    require(np.array_equal(counts, cm), f"the PNGs' pixel classes {counts.tolist()} are the "
+            f"CLI's confusion matrix {cm.tolist()}")
+
+
+def phase_clis(dev, smi: str) -> None:
+    """Phase 26: the train and test CLIs on the card from PNG files."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from smow_net_tpu_torch.cli import test as cli_test
+    from smow_net_tpu_torch.cli import train as cli_train
+    from smow_net_tpu_torch.data import png
+    from smow_net_tpu_torch.data.dataset import (CDDataset, DataLoader,
+                                                 generate_synthetic_dataset, prefetch_to_device)
+    from smow_net_tpu_torch.ops import _kernels
+
+    log("phase 26: the CLIs from files: the synthetic set at 256^2 (32 train, 16 val, 16 "
+        "test), cli.train on smow_net (bf16, batch 16, 2 epochs, 8 threads, --profile), "
+        "--resume to epoch 3, cli.test on `best`, kernel path then plain path")
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = os.path.join("_scratch", "chip_smoke_clis")     # gitignored; removed at the end
+    shutil.rmtree(work, ignore_errors=True)
+    data, out, trace = (os.path.join(work, n) for n in ("data", "out", "trace"))
+    t0 = time.perf_counter()
+    generate_synthetic_dataset(data, n_train=32, n_val=16, size=256, seed=0)
+    log(f"  synthetic set written in {time.perf_counter() - t0:.2f} s")
+
+    reset_launches()
+    args = ["--model", "smow_net", "--data_dir", data, "--output_dir", out, "--batchsize", "16",
+            "--bf16", "--num_workers", "8"]
+    timings = collections.defaultdict(list)
+    opt = cli_train.parse_option(args + ["--epochs", "2", "--profile", trace])
+    run, _ = _cli(cli_train.setup, opt)
+    _watch(run, timings)
+    _, text = _cli(cli_train.fit, opt, run)
+    _check_outputs(out, 2, text)
+    with open(os.path.join(trace, "trace.json")) as fh:
+        kernels = {e["name"] for e in json.load(fh)["traceEvents"] if e.get("cat") == "kernel"}
+    missing = [f for f in CLI_TRACE_FUNCTIONS if not any(f in k for k in kernels)]
+    require(not missing, f"the profiler trace names no {missing}")
+    ours = sorted(k[:80] for k in kernels if any(f in k for f in CLI_TRACE_FUNCTIONS))
+    log(f"  the trace ({len(kernels)} kernel names) names the train kernels: {ours}")
+
+    last = torch.load(os.path.join(out, "last"), map_location=dev, weights_only=True)
+    opt = cli_train.parse_option(args + ["--epochs", "3", "--resume", os.path.join(out, "last")])
+    run, text = _cli(cli_train.setup, opt)
+    require(f"resumed from {os.path.join(out, 'last')} at epoch 3" in text, "the resume line")
+    state = run.model.state_dict()
+    require(set(state) == set(last["model"]) and all(torch.equal(state[k], v)
+                                                     for k, v in last["model"].items()),
+            "the resumed parameters and BN buffers equal `last`'s, bitwise")
+    moments = run.state.optimizer.state_dict()["inner"]["state"]
+    require(run.state.optimizer.count == last["optimizer"]["count"] == 4
+            and all(torch.equal(moments[i][k], v)
+                    for i, st in last["optimizer"]["inner"]["state"].items()
+                    for k, v in st.items()),
+            "the optimizer count (4) and moments equal `last`'s, bitwise")
+    _watch(run, timings)
+    _, text = _cli(cli_train.fit, opt, run)
+    _check_outputs(out, 3, text)
+    log(f"  launches per CLI train step {TRAIN_KERNELS['smow_net']} over "
+        f"{len(timings['train'])} steps, per val batch {EVAL_KERNELS['smow_net']} over "
+        f"{len(timings['val'])} batches: held")
+
+    cms = {}
+    for path in ("kernel", "plain"):
+        before = dict(_kernels.launches)
+        test_opt = cli_test.parse_option([
+            "--model", "smow_net", "--data_dir", data, "--checkpoint", os.path.join(out, "best"),
+            "--output_dir", os.path.join(work, f"vis_{path}")])
+        with plain_ops() if path == "plain" else contextlib.nullcontext():
+            (_, cms[path]), _ = _cli(cli_test.main, test_opt)
+        ran = {n: c - before.get(n, 0) for n, c in _kernels.launches.items()
+               if c != before.get(n, 0)}
+        want = {n: 16 * k for n, k in EVAL_KERNELS["smow_net"].items()} if path == "kernel" else {}
+        require(ran == want, f"cli.test on the {path} path launched {ran}, not {want}")
+    pixels = 16 * 256 * 256
+    diff = float(np.abs(cms["kernel"] - cms["plain"]).max())
+    log(f"  cli.test confusion matrices: kernel {cms['kernel'].tolist()}, plain "
+        f"{cms['plain'].tolist()}; max difference {diff:.0f} pixels "
+        f"({diff / pixels:.2e} of {pixels}; bound 1e-4)")
+    require(diff <= 1e-4 * pixels, "the test CLI's kernel and plain paths agree")
+    _check_visualisations(os.path.join(work, "vis_kernel"), data, cms["kernel"])
+    log("  16 visualisations decode to colorize(prediction, ground truth), their pixels "
+        "summing to the confusion matrix")
+
+    # what sets the pace: the input pipeline or the step
+    log(f"  timings on {smi.strip()}:")
+    loader = DataLoader(CDDataset(data, "train"), 16, shuffle=True, num_workers=8)
+    list(loader)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in range(3) for _ in loader)
+    log(f"    loader, native engine: {n / (time.perf_counter() - t0):.2f} batches/s "
+        f"(16 x 256^2, 8 threads, {n} batches)")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        for batch in prefetch_to_device(iter(loader), dev):
+            pass
+    torch.cuda.synchronize()
+    log(f"    the same through prefetch_to_device (pinned, non-blocking copies): "
+        f"{6 / (time.perf_counter() - t0):.2f} batches/s")
+    files = [os.path.join(data, sub, name) for name in CDDataset(data, "train").names
+             for sub in ("A", "B", "label")]
+    with ThreadPoolExecutor(8) as pool:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            list(pool.map(png.read_png, files))
+        log(f"    PNG decode alone: {6 / (time.perf_counter() - t0):.2f} batches/s "
+            f"({len(files) // 2} files a batch, 8 threads)")
+    steps, starts = timings["train"][1:], timings["train_starts"]
+    gaps = [b - a for a, b in zip(starts, starts[1:])]
+    log(f"    cli.train step (synchronised): median {np.median(steps):.2f} ms over "
+        f"{len(steps)} steps after the first; start-to-start within an epoch "
+        f"{[round(g * 1e3, 2) for g in gaps[0::2]]} ms; phase 7's step on one repeated "
+        f"batch {STEP_MEDIANS['smow_net']:.2f} ms")
+    log(f"    cli.train validation, fp32 eval step: {np.median(timings['val']):.2f} ms/batch "
+        f"(median of {len(timings['val'])}: {[round(v, 2) for v in timings['val']]})")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs the port on an NVIDIA GPU")
@@ -2897,7 +3127,8 @@ def main() -> None:
     require(all(cdm_train.get(n, 0) > 0 for n in SEG_KERNELS),
             "CD-Mamba's train step launched the carry and adjcarry kernels")
     j_launches, j = phase_scan_states(dev)
-    reset_launches()            # and no phase since phase 24's reset launched G or G-bwd
+    phase_clis(dev, smi.stdout)
+    reset_launches()            # and no phase since phase 26's reset launched G or G-bwd
 
     log("phase 25: results (launches: D and F at D = 128 from SMOW_Net's eval path (phase "
         "5), E, C, A-bwd and F-bwd at D = 128 from its train step (phase 7), A-fwd and B "

@@ -12,7 +12,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["confusion_matrix", "cm2score"]
+__all__ = ["confusion_matrix", "cm2score", "cm2F1", "ConfuseMatrixMeter"]
 
 _EPS = float(np.finfo(np.float32).eps)
 
@@ -49,3 +49,31 @@ def cm2score(cm) -> Dict[str, float]:
     iou = tp / (total - tn + _EPS)
     return {"acc": float(acc), "iou": float(iou), "F1": float(f1),
             "precision": float(precision), "recall": float(recall)}
+
+
+def cm2F1(cm) -> float:
+    return cm2score(cm)["F1"]
+
+
+class ConfuseMatrixMeter:
+    """Host-side accumulator of confusion matrices (the reference meter's
+    API): `update_cm` adds one and returns its F1, `get_scores` scores the
+    sum."""
+
+    def __init__(self, n_class: int = 2):
+        if n_class != 2:
+            raise ValueError(f"ConfuseMatrixMeter scores 2 classes, not {n_class}")
+        self.sum = np.zeros((2, 2), dtype=np.float64)
+
+    def update_cm(self, cm) -> float:
+        if isinstance(cm, torch.Tensor):
+            cm = cm.detach().cpu().numpy()
+        cm = np.asarray(cm, dtype=np.float64)
+        self.sum += cm
+        return cm2F1(cm)
+
+    def get_scores(self) -> Dict[str, float]:
+        return cm2score(self.sum)
+
+    def clear(self) -> None:
+        self.sum = np.zeros((2, 2), dtype=np.float64)

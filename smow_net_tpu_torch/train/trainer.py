@@ -121,6 +121,11 @@ class TrainState:
     loss_count: torch.Tensor
     generator: torch.Generator
 
+    def reset_metrics(self) -> None:
+        """Zero the metrics summed on the device (at an epoch's start)."""
+        for t in (self.cm, self.loss_sum, self.loss_count):
+            t.zero_()
+
 
 def create_train_state(model: torch.nn.Module, optimizer: Optimizer,
                        seed: int = 0) -> TrainState:
