@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Drive the PyTorch/CUDA port of SMOW_Net, SMOW_Net_LW, ChangeMamba and
-CD-Mamba, its general selective scan, and its train and test CLIs from PNG
-files, on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port of SMOW_Net, SMOW_Net_LW, ChangeMamba,
+CD-Mamba and RS-Mamba, its general selective scan, the VMamba layer family,
+and its train and test CLIs from PNG files, on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
 
@@ -71,8 +71,8 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      4096, D), every built D, against the plain arithmetic in float64
      (`attn_f64`): the output and all eight gradients within 1e-4 of their
      largest element. No later phase may launch G or G-bwd: every counter
-     reset (phases 5, 7, 8b, 9, 11, 15, 17, 21, 23, 24, 26) and phase 25
-     check it
+     reset (phases 5, 7, 8b, 9, 11, 15, 17, 21, 23, 24, 28, 30, 32, 26) and
+     phase 25 check it
   5. main path: get_model("smow_net") with numpy-seeded weights in bf16,
      make_eval_step over 3 batches of 16 x 256^2 pairs; each kernel's launch
      count must rise by exactly one per batch; then ms/batch (CUDA events)
@@ -178,6 +178,34 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      strips: chained segments), both directions, bitwise twice; the A/B
      of J's route against H at L = 62500, Dch 64, G 2, N 16, forward and
      forward + backward, bf16; H and I at 70000 rows, forward and backward
+  27. kernel I at K = 8 (RS-Mamba's eight directions, 256 rows a call):
+     I-fwd vs `cross_selective_scan_plain` at the four stage shapes of 16 x
+     256^2 ((32, 8, L, Dk) for (L, Dk) in (4096, 192), (1024, 384), (256,
+     768), (64, 1536)), fp32 and bf16, one launch a call; I-ckpt's states and I-ckpt + I-bwd's seven
+     gradients vs the plain version at (4, 8, 1024, 384), fp32; what
+     `scan.seg_count` gives at each of RS-Mamba's four stage shapes (logged:
+     the grouped contract never segments); then I-fwd's time summed over the
+     15 calls of one RS-Mamba forward at 16 x 256^2 and I-ckpt's and I-bwd's
+     over one train step's, bf16, beside their bounds (phase 13's formula)
+  28-31. phases 5-8 for get_model("rs_mamba") (51.95 M parameters; weights
+     seeded as phase 15's): the eval step (I-fwd 15 times per batch), the
+     fp32 model, the train step (I-fwd, I-ckpt and I-bwd 15 times per step,
+     no other kernel; the kernel path's rounds alone: the plain scan's
+     checkpointed backward does not fit the card at K = 8 and batch 16) and
+     its fp32 gradients, held as phase 18 holds ChangeMamba's, every pass
+     drawing the same DropPath masks
+  32. the layer family: SS2D at K = 8, scan_variant 1d and 2d, xv1aact,
+     xv2amul and xv3asoftmax (kernel I: I-fwd once a forward, I-ckpt and
+     I-bwd once a backward), and d_state 8 (kernel J: once forward, twice
+     backward), fp32 at (2, 32, 32, 96), kernel path vs plain path; then
+     RS-Mamba's fp32 forward + backward at batch 2, 256^2, with
+     use_checkpoint (remat) vs without: the loss to 1e-6, every gradient
+     within 1e-6 of the leaf's largest element (or, above that, 4x the
+     spread between two runs without remat: the head's bilinear backward
+     adds with atomics), I-fwd 30 launches (15 more: the recompute) against
+     15, and both peaks of device memory; then one bf16 train step
+     (`make_train_step`, bf16 copies of the masters swapped in) at batch 2
+     with and without remat: the loss to 1e-6, I-fwd 30 and 15 launches
   26. (before 25's results) the CLIs from PNG files: the synthetic set
      at 256^2 (32 train, 16 val, 16 test) written by `data/png.py`;
      `cli.train` on SMOW_Net (bf16, batch 16, 8 loader threads, 2 epochs,
@@ -237,7 +265,10 @@ for I-ckpt (it computes the states I-ckpt keeps); for I-bwd the plain
 backward (autograd through the checkpointed plain scan, which recomputes
 each chunk), timed as forward + backward less the forward with its graph;
 each plain time is one call with no warm-up, as phase 19 takes H's (the
-plain scans' seconds would otherwise crowd the script's time limit).
+plain scans' seconds would otherwise crowd the script's time limit). The
+timed scans' inputs (phases 13, 14, 19, 20's A/B, 27) are drawn on the
+card from a seed: numpy's draws at these sizes took most of those phases'
+seconds; the checks' inputs are numpy-seeded.
 
 """
 
@@ -1539,14 +1570,18 @@ def scan_bound(n_bytes: float, flops: float, exps: float, rate: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def _scan_args(dev, shape, seed, dtype=torch.float32):
-    """Kernel I's inputs at `shape` = (B, K, L, Dk), numpy-seeded in
-    SS2D's ranges: dt = softplus(dts + bias) mostly in [1e-3, 0.1] with a
-    tail above, A = -exp(log(1..16) + noise)."""
+def _scan_args(dev, shape, seed, dtype=torch.float32, on_device=False):
+    """Kernel I's inputs at `shape` = (B, K, L, Dk), numpy-seeded (with
+    `on_device`, drawn on the card from the seed: seconds less per call at
+    these sizes) in SS2D's ranges: dt = softplus(dts + bias) mostly in
+    [1e-3, 0.1] with a tail above, A = -exp(log(1..16) + noise)."""
     B, K, L, Dk = shape
     rng = np.random.default_rng(seed)
+    gen = torch.Generator(dev).manual_seed(seed) if on_device else None
 
     def f(*s, scale=1.0, off=0.0):
+        if on_device:
+            return torch.randn(s, generator=gen, device=dev) * scale + off
         return torch.from_numpy((rng.normal(size=s) * scale + off).astype(np.float32)).to(dev)
 
     A = -torch.exp(torch.log(torch.arange(1, 17, device=dev, dtype=torch.float32))
@@ -1596,10 +1631,20 @@ def phase_scan_fwd(dev, rate: float) -> dict:
                 result["max_abs_err"] = err
             del y, want
     log_fwd_build(flat=False)
-    # the 27 calls of one bf16 eval forward
+    result.update(fwd_call_times(dev, SCAN_CALLS, rate))
+    return result
+
+
+def fwd_call_times(dev, calls, rate: float) -> dict:
+    """I-fwd's bf16 time summed over `calls` ((B, K, L, Dk), count), one
+    eval forward's scan calls, beside the plain scan's (one call each, no
+    warm-up) and the bound of the same work; inputs as `_scan_args` draws
+    them on the card."""
+    from smow_net_tpu_torch.ops import scan
+
     ms = plain_ms = n_bytes = flops = exps = 0.0
-    for shape, count in SCAN_CALLS:
-        args = _scan_args(dev, shape, 41, torch.bfloat16)
+    for shape, count in calls:
+        args = _scan_args(dev, shape, 41, torch.bfloat16, on_device=True)
         with torch.no_grad():
             t = cuda_ms(lambda: scan.cross_selective_scan(*args), iters=5, warmup=1)
             tp = cuda_ms(lambda: scan.cross_selective_scan_plain(*args), iters=1, warmup=0)
@@ -1610,9 +1655,10 @@ def phase_scan_fwd(dev, rate: float) -> dict:
         n_bytes += count * (nbytes(*args) + 2 * elems)          # + y in bf16
         flops += count * 5 * 16 * elems
         exps += count * 18 * elems                              # 16 states + softplus
-    result.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+    result = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                   **scan_bound(n_bytes, flops, exps, rate))
-    log(f"  one forward's 27 calls, bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    n = sum(count for _, count in calls)
+    log(f"  one forward's {n} calls, bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{result['bound_ms']:.4f} ms ({result['bound_by']}; {exps:.3e} exps, "
         f"{n_bytes:.3e} bytes)")
     return result
@@ -1661,13 +1707,25 @@ def phase_scan_bwd(dev, rate: float) -> dict:
             "I-bwd gives the same bits on two runs")
     log("  I-bwd at (16, 4, 1000, 200), fp32, twice: dus, ddt, dB, dC and dA bitwise equal")
     del a, gy, hck, first, second
-    # the 27 calls of one bf16 train step's backward
-    ck = results["selective_scan_ckpt"]
-    bw = results["selective_scan_bwd"]
+    ck, bw = bwd_call_times(dev, SCAN_CALLS, rate)
+    results["selective_scan_ckpt"].update(ck)
+    results["selective_scan_bwd"].update(bw)
+    return results
+
+
+def bwd_call_times(dev, calls, rate: float) -> tuple:
+    """I-ckpt's and I-bwd's bf16 times summed over `calls` ((B, K, L, Dk),
+    count), one train step's scan calls (I-bwd also alone: its launches
+    between CUDA events), beside the plain versions' (one call each, no
+    warm-up) and the bounds of the same work; inputs as `_scan_args` draws
+    them on the card."""
+    from smow_net_tpu_torch.ops import scan
+
+    ck, bw = {}, {}
     tot = dict(ck=0.0, bw=0.0, bw_kernel=0.0, ck_plain=0.0, bw_plain=0.0, ck_bytes=0.0,
                bw_bytes=0.0, elems=0.0)
-    for shape, count in SCAN_CALLS:
-        args = _scan_args(dev, shape, 45, torch.bfloat16)
+    for shape, count in calls:
+        args = _scan_args(dev, shape, 45, torch.bfloat16, on_device=True)
         gy = torch.randn(shape, device=dev, dtype=torch.bfloat16)
         a = scan._Args(*args)
         hck = scan._scan_ckpt(a)
@@ -1701,11 +1759,73 @@ def phase_scan_bwd(dev, rate: float) -> dict:
     # exp and log: 18 per element, as I-fwd and I-ckpt
     bw.update(ms=tot["bw"], plain_ms=tot["bw_plain"], library_ms=None,
               **scan_bound(tot["bw_bytes"], 20 * 16 * e, 18 * e, rate))
+    n = sum(count for _, count in calls)
     for label, r in (("I-ckpt", ck), ("I-bwd", bw)):
-        log(f"  one train step's 27 calls, bf16: {label} {r['ms']:.4f} ms, plain "
+        log(f"  one train step's {n} calls, bf16: {label} {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    log(f"  one train step's 27 calls, bf16: I-bwd's kernel alone {tot['bw_kernel']:.4f} ms "
+    log(f"  one train step's {n} calls, bf16: I-bwd's kernel alone {tot['bw_kernel']:.4f} ms "
         "(CUDA events; the wrapper adds the dy cast and the sum of the dB and dC partials)")
+    return ck, bw
+
+
+# (B, K, L, Dk) of every selective-scan call in one RS-Mamba forward at 16 x
+# 256^2 (the 2B-batched encoder's four stages, K = 8), with its number of calls
+RS_SCAN_CALLS = (((32, 8, 4096, 192), 2), ((32, 8, 1024, 384), 2), ((32, 8, 256, 768), 9),
+                 ((32, 8, 64, 1536), 2))
+
+
+def phase_scan_k8(dev, rate: float) -> dict:
+    """Kernel I at K = 8, RS-Mamba's eight directions: 256 rows a call."""
+    from smow_net_tpu_torch.ops import _kernels, scan
+
+    log("phase 27: kernel I at K = 8 (RS-Mamba): I-fwd vs cross_selective_scan_plain at "
+        "RS-Mamba's four stage shapes (fp32: 1e-5 of the largest output; bf16: one bf16 "
+        "rounding of the plain version in fp32), I-ckpt's states and I-ckpt + I-bwd's seven "
+        "gradients vs the plain version at (32, 8, 1024, 384) and (32, 8, 64, 1536) (fp32: "
+        "1e-5; 1e-4 of each largest), then the times over one RS-Mamba forward's and train step's 15 calls, bf16")
+    names = ("xs", "dts", "A", "Bs", "Cs", "Ds", "dt_bias")
+    results = {"selective_scan_fwd": {}, "selective_scan_ckpt": {}, "selective_scan_bwd": {}}
+    for shape, count in RS_SCAN_CALLS:
+        B, K, L, Dk = shape
+        log(f"  {shape} x{count}: {B * K} rows; scan.seg_count(rows, L, Dk) = "
+            f"{scan.seg_count(B * K, L, Dk)} (the grouped contract runs every row whole)")
+    for shape, _ in RS_SCAN_CALLS:
+        args32 = _scan_args(dev, shape, 50, on_device=True)
+        for dt in (torch.float32, torch.bfloat16):
+            args = [a.to(dt) if i in (0, 1, 3, 4) else a for i, a in enumerate(args32)]
+            before = _kernels.launches["selective_scan_fwd"]
+            with torch.no_grad():
+                y = scan.cross_selective_scan(*args)
+                want = scan.cross_selective_scan_plain(*[a.float() for a in args])
+            require(_kernels.launches["selective_scan_fwd"] == before + 1 and y.dtype == dt,
+                    "I-fwd launched once and returns the input dtype")
+            err = check(f"I-fwd {shape} {str(dt)[6:]}", y, want, 0.0,
+                        1e-5 if dt == torch.float32 else BF16_REL)
+            if shape == (32, 8, 4096, 192) and dt == torch.bfloat16:
+                results["selective_scan_fwd"]["max_abs_err"] = err
+            del y, want, args
+        del args32
+    # the train step's second and last stages: 256 rows a call, as phase 14
+    # holds K = 4 at ChangeMamba's (32, 4, 1024, 384)
+    err_ck = err_bw = 0.0
+    for shape in ((32, 8, 1024, 384), (32, 8, 64, 1536)):
+        a = scan._Args(*_scan_args(dev, shape, 51, on_device=True))
+        err_ck = max(err_ck, check(f"I-ckpt {shape} chunk-start states", scan._scan_ckpt(a),
+                                   scan.scan_ckpt_plain(a), 0.0, 1e-5))
+        del a
+        args = [t.requires_grad_() for t in _scan_args(dev, shape, 52, on_device=True)]
+        gy = torch.randn(shape, device=dev, generator=torch.Generator(dev).manual_seed(53))
+        got = torch.autograd.grad(scan.cross_selective_scan(*args), args, gy)
+        want = torch.autograd.grad(scan.cross_selective_scan_plain(*args), args, gy)
+        err_bw = max(err_bw, *(check(f"I-bwd {shape} d{n}", g, w, 0.0, 1e-4)
+                               for n, g, w in zip(names, got, want)))
+        del got, want, args, gy
+    results["selective_scan_ckpt"]["max_abs_err"] = err_ck
+    results["selective_scan_bwd"]["max_abs_err"] = err_bw
+    results["selective_scan_fwd"].update(fwd_call_times(dev, RS_SCAN_CALLS, rate))
+    ck, bw = bwd_call_times(dev, RS_SCAN_CALLS, rate)
+    results["selective_scan_ckpt"].update(ck)
+    results["selective_scan_bwd"].update(bw)
     return results
 
 
@@ -1740,13 +1860,17 @@ def cdm_launches(train: bool, calls=CDM_CALLS) -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
-def _flat_args(dev, B, L, G, Cg, seed, dtype=torch.float32):
-    """Kernel H's inputs at (B, L, G, Cg), numpy-seeded in CD-Mamba's
-    ranges (as `_scan_args`): u, delta (B, L, G*Cg), A (G*Cg, 16), Bmat, Cmat
-    (B, L, G, 16), D, delta_bias (G*Cg)."""
+def _flat_args(dev, B, L, G, Cg, seed, dtype=torch.float32, on_device=False):
+    """Kernel H's inputs at (B, L, G, Cg), numpy-seeded (or, with
+    `on_device`, drawn on the card) in CD-Mamba's ranges (as `_scan_args`):
+    u, delta (B, L, G*Cg), A (G*Cg, 16), Bmat, Cmat (B, L, G, 16), D,
+    delta_bias (G*Cg)."""
     rng = np.random.default_rng(seed)
+    gen = torch.Generator(dev).manual_seed(seed) if on_device else None
 
     def f(*s, scale=1.0, off=0.0):
+        if on_device:
+            return torch.randn(s, generator=gen, device=dev) * scale + off
         return torch.from_numpy((rng.normal(size=s) * scale + off).astype(np.float32)).to(dev)
 
     Dch = G * Cg
@@ -1806,7 +1930,7 @@ def phase_flat_scan(dev, rate: float) -> dict:
     # seeded) and sequential
     tot = collections.defaultdict(float)
     for (B, L, G, Cg), n in CDM_CALLS:
-        args = _flat_args(dev, B, L, G, Cg, 52, torch.bfloat16)
+        args = _flat_args(dev, B, L, G, Cg, 52, torch.bfloat16, on_device=True)
         gy = torch.randn(args[0].shape, device=dev, dtype=torch.bfloat16)
         a = scan._Args(*args, flat=True)
         S = scan.seg_count(a.rows, L, Cg)
@@ -2052,7 +2176,7 @@ def phase_seg_scan(dev, rate: float) -> dict:
     for (B, L, G, Cg), n in CDM_CALLS:
         if L < 4096:
             continue
-        args = _flat_args(dev, B, L, G, Cg, 63, torch.bfloat16)
+        args = _flat_args(dev, B, L, G, Cg, 63, torch.bfloat16, on_device=True)
         a = scan._Args(*args, flat=True)
         gy = torch.randn(a.u.shape, device=dev, dtype=torch.bfloat16)
         for S in (1, 2, 4, 8, 16, 32, 64):
@@ -2323,6 +2447,7 @@ EVAL_KERNELS = {
     "smow_net": {"token_scatter_fwd": 1, "xattn_layer_fwd": 1},
     "smow_net_lw": {"token_scatter_fwd": 1, "xattn_layer_fwd": 1},
     "change_mamba": {"selective_scan_fwd": 27},
+    "rs_mamba": {"selective_scan_fwd": 15},
 }
 # the train step's kernels per model and their launches per step, and the
 # kernels it must not launch
@@ -2333,6 +2458,7 @@ TRAIN_KERNELS = {
                                   "grid_sample_t_vjp", "grid_sample_bwd", "xattn_layer_fwd",
                                   "xattn_layer_bwd"), 1),
     "change_mamba": dict.fromkeys(SCAN_KERNELS, 27),
+    "rs_mamba": dict.fromkeys(SCAN_KERNELS, 15),
 }
 TRAIN_ABSENT = {
     "smow_net": ("token_scatter_fwd", "grid_sample_fwd", "grid_sample_transpose")
@@ -2341,6 +2467,9 @@ TRAIN_ABSENT = {
     "change_mamba": ("token_scatter_fwd", "token_scatter_fwd_eaw", "grid_sample_fwd",
                      "grid_sample_transpose", "grid_sample_t_vjp", "grid_sample_bwd",
                      "xattn_layer_fwd", "xattn_layer_bwd"),
+    "rs_mamba": ("token_scatter_fwd", "token_scatter_fwd_eaw", "grid_sample_fwd",
+                 "grid_sample_transpose", "grid_sample_t_vjp", "grid_sample_bwd",
+                 "xattn_layer_fwd", "xattn_layer_bwd"),
     "cd_mamba": ("token_scatter_fwd", "token_scatter_fwd_eaw", "grid_sample_fwd",
                  "grid_sample_transpose", "grid_sample_t_vjp", "grid_sample_bwd",
                  "xattn_layer_fwd", "xattn_layer_bwd") + SCAN_KERNELS,
@@ -2848,6 +2977,156 @@ def phase_fp32_train_grads(dev, name: str, phase, **model_kwargs) -> None:
             "largest element (bound 1e-3: fp32 sums in other orders and atomics)")
 
 
+# phase 32's SS2D forms: keyword arguments at width 96 on a 32 x 32 map
+FAMILY_CASES = {"k8": dict(k_group=8), "1d": dict(scan_variant="1d"),
+                "2d": dict(scan_variant="2d"), "xv1aact": dict(forward_type="xv1aact"),
+                "xv2amul": dict(forward_type="xv2amul"),
+                "xv3asoftmax": dict(forward_type="xv3asoftmax"), "dstate8": dict(d_state=8)}
+
+
+def _resize_by_matmul(x: torch.Tensor, size, align_corners: bool = False) -> torch.Tensor:
+    """`ops.resize.resize_linear` with align_corners (the only form
+    RS-Mamba's head takes) as two products with the per-axis interpolation
+    matrices: its backward is matmuls, with no atomics."""
+    require(align_corners, "the matmul resize is corner-aligned only")
+
+    def weights(n_in, n_out):
+        src = torch.arange(n_out, device=x.device, dtype=torch.float64) * (
+            (n_in - 1) / max(n_out - 1, 1))
+        lo = src.floor().clamp(max=n_in - 1)
+        frac = src - lo
+        m = torch.zeros(n_out, n_in, device=x.device, dtype=torch.float64)
+        m[torch.arange(n_out), lo.long()] += 1 - frac
+        m[torch.arange(n_out), (lo.long() + 1).clamp(max=n_in - 1)] += frac
+        return m.to(x.dtype)
+
+    return torch.einsum("oh,bchw,pw->bcop", weights(x.shape[2], size[0]), x,
+                        weights(x.shape[3], size[1]))
+
+
+def phase_layer_family(dev) -> dict:
+    """SS2D's other forms and RS-Mamba's remat on the card: each form's
+    output and gradients, kernel path vs plain path; RS-Mamba's step with
+    remat vs without."""
+    from smow_net_tpu_torch.models import get_model, rs_mamba
+    from smow_net_tpu_torch.nn.ssm import SS2D, DropPath
+    from smow_net_tpu_torch.ops import _kernels
+    from smow_net_tpu_torch.ops.resize import resize_linear
+    from smow_net_tpu_torch.train.loss import bce_dice_loss
+    from smow_net_tpu_torch.train.schedule import get_schedule
+    from smow_net_tpu_torch.train.trainer import (create_train_state, make_optimizer,
+                                                  make_train_step, select_pred)
+
+    log("phase 32: the layer family: SS2D at K = 8, scan_variant 1d and 2d, xv1a, xv2a and xv3a "
+        "with a postfix each (kernel I once per forward, I-ckpt and I-bwd once per backward) "
+        "and d_state 8 (kernel J: once forward, twice backward), fp32 at (2, 32, 32, 96), "
+        "kernel path vs plain path (output 1e-5 of its largest element, each gradient 1e-4 "
+        "of its largest); then an RS-Mamba fp32 forward + backward at batch 2, 256^2, with "
+        "use_checkpoint vs without, the head resizing by matmuls (the loss to 1e-6, every "
+        "gradient within 1e-6 of the leaf's largest element), and one bf16 train step at "
+        "batch 2 with and without it")
+    rng = np.random.default_rng(60)
+    x = torch.from_numpy(rng.normal(size=(2, 32, 32, 96)).astype(np.float32)).to(dev)
+    for name, kw in FAMILY_CASES.items():
+        torch.manual_seed(61)
+        m = SS2D(96, **kw).to(dev)
+        leaves = [x.detach().requires_grad_()] + list(m.parameters())
+        gy = torch.from_numpy(rng.normal(size=x.shape).astype(np.float32)).to(dev)
+
+        def run():
+            m.zero_grad(set_to_none=True)
+            y = m(leaves[0])
+            return y.detach(), torch.autograd.grad(y, leaves, gy)
+
+        reset_launches()
+        y, grads = run()
+        counts = dict(_kernels.launches)
+        want_counts = ({"scan_states": 3} if "d_state" in kw
+                       else dict.fromkeys(SCAN_KERNELS, 1))
+        require(counts == want_counts, f"SS2D {name}: launches {counts}, not {want_counts}")
+        with plain_ops():
+            y_p, grads_p = run()
+        require(dict(_kernels.launches) == counts, f"SS2D {name}: the plain path launched")
+        log(f"  SS2D {name}: launches {counts}")
+        check(f"SS2D {name} output", y, y_p, 0.0, 1e-5)
+        names = ["x"] + [n for n, _ in m.named_parameters()]
+        for n, g, w in zip(names, grads, grads_p):
+            check(f"SS2D {name} d{n}", g, w, 0.0, 1e-4)
+        del m, leaves, grads, grads_p
+
+    batch = make_batches(dev, 1, 2, 256, seed=62)[0]
+    x1, x2 = (batch[k].permute(0, 3, 1, 2) for k in ("A", "B"))
+    generator = torch.Generator(device=dev)
+    sd, runs = None, []
+    # the head's bilinear resize adds its CUDA backward with atomics, so two
+    # runs of one step would differ in the last bits of every gradient
+    # upstream: these passes resize by interpolation matrices instead, whose
+    # backward is two matmuls
+    torch.backends.cudnn.deterministic = True
+    rs_mamba.resize_linear = _resize_by_matmul
+    try:
+        for remat in (False, False, True):
+            model = get_model("rs_mamba", use_checkpoint=remat).train()
+            if sd is None:
+                sd = seeded_state_dict(model, 0)
+            model.load_state_dict(sd)
+            for mod in model.modules():
+                if isinstance(mod, DropPath):
+                    mod.generator = generator
+            generator.manual_seed(0)
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            loss = bce_dice_loss(select_pred(model(x1, x2)), batch["mask"])
+            loss.backward()
+            runs.append((float(loss.detach()), dict(_kernels.launches),
+                         {n: p.grad.clone() for n, p in model.named_parameters()
+                          if p.grad is not None},
+                         torch.cuda.max_memory_allocated() / 2 ** 30))
+            del model, loss
+    finally:
+        torch.backends.cudnn.deterministic = False
+        rs_mamba.resize_linear = resize_linear
+    (loss0, counts0, g0, mem0), (_, _, again, _), (loss1, counts1, g1, mem1) = runs
+    log(f"  RS-Mamba without remat: loss {loss0:.7f}, launches {counts0}, peak {mem0:.2f} GiB")
+    log(f"  RS-Mamba with remat: loss {loss1:.7f}, launches {counts1}, peak {mem1:.2f} GiB")
+    require(counts0 == dict.fromkeys(SCAN_KERNELS, 15), "the step without remat runs I 15 times")
+    require(counts1 == {"selective_scan_fwd": 30, "selective_scan_ckpt": 15,
+                        "selective_scan_bwd": 15},
+            "the remat step runs I-fwd once more per call (the recompute)")
+    require(abs(loss1 - loss0) <= 1e-6 * abs(loss0), "remat changed the loss")
+    require(g0.keys() == g1.keys(), "remat changed which parameters get gradients")
+    spread, n_s = leaf_errors(g0, again)[0]
+    err, n = leaf_errors(g0, g1)[0]
+    log(f"  remat vs no remat: worst leaf {n} {err:.3e} of its largest element; no remat vs "
+        f"itself: {n_s} {spread:.3e} (bound 1e-6)")
+    require(err <= 1e-6, f"{n}: remat changed the gradient by {err:.3e} of its largest "
+            "element, over 1e-6")
+    del g0, g1, again
+
+    # the bf16 train step swaps bf16 copies of the masters in: the recompute
+    # must run on them (1 step at batch 2, remat against no remat)
+    losses = {}
+    for remat in (False, True):
+        model = get_model("rs_mamba", use_checkpoint=remat)
+        model.load_state_dict(sd)
+        opt = make_optimizer(get_schedule("cosine", 1e-4, epochs=1, iters_per_epoch=1))(
+            model.parameters())
+        state = create_train_state(model, opt, seed=3)
+        reset_launches()
+        losses[remat] = float(make_train_step(model, opt, torch.bfloat16)(state, batch))
+        counts = dict(_kernels.launches)
+        require(counts == {"selective_scan_fwd": 30 if remat else 15, "selective_scan_ckpt": 15,
+                           "selective_scan_bwd": 15}, f"bf16 step, remat {remat}: {counts}")
+        require(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+                "the bf16 remat step's parameters must stay finite")
+        del model, opt, state
+    log(f"  bf16 train step at batch 2: loss {losses[False]:.6f}, with remat "
+        f"{losses[True]:.6f}; I-fwd 15 and 30 launches")
+    require(abs(losses[True] - losses[False]) <= 1e-6 * abs(losses[False]),
+            "remat changed the bf16 step's loss")
+    return {"remat_peak_gib": mem1, "peak_gib": mem0}
+
+
 # the device functions of SMOW_Net's bf16 train-step kernels (E, C, A-bwd, F,
 # F-bwd), which the train CLI's profiler trace must name
 CLI_TRACE_FUNCTIONS = ("token_scatter_fwd_kernel", "grid_sample_t_vjp_kernel",
@@ -3127,6 +3406,14 @@ def main() -> None:
     require(all(cdm_train.get(n, 0) > 0 for n in SEG_KERNELS),
             "CD-Mamba's train step launched the carry and adjcarry kernels")
     j_launches, j = phase_scan_states(dev)
+    rs_scan = phase_scan_k8(dev, rate)
+    rs_launches = phase_main_path(dev, "rs_mamba", 28, rounds=1, per_round=3)
+    phase_fp32_model(dev, "rs_mamba", 29)
+    # the plain scan's checkpointed backward does not fit the card at K = 8
+    # and batch 16: the kernel path's rounds alone, as phase 23's
+    rs_train_launches = phase_train(dev, "rs_mamba", 30, rounds=2, per_round=2, plain=False)
+    phase_fp32_train_grads(dev, "rs_mamba", 31)
+    phase_layer_family(dev)
     phase_clis(dev, smi.stdout)
     reset_launches()            # and no phase since phase 26's reset launched G or G-bwd
 
@@ -3145,7 +3432,10 @@ def main() -> None:
         f"the fused chain (phase 8b, 3 steps), J from the general route's checks (phase 24), "
         "an op path: no model has N != 16 or the softplus off; G and G-bwd from their checks "
         "(phases 4c and 4d), an op path: no model runs the attention sublayer alone, and "
-        "every counter reset from phase 5 on found them at 0)")
+        "every counter reset from phase 5 on found them at 0; the K = 8 rows: I-fwd from "
+        "RS-Mamba's eval path (phase 28, 3 batches), I-ckpt and I-bwd from its train step "
+        f"(phase 30, 6 steps; its I-fwd {rs_train_launches['selective_scan_fwd']} times), their "
+        "errors and times from phase 27)")
     csrc, pallas = "smow_net_tpu_torch/csrc/", "smow_net_tpu/ops/pallas/"
 
     def row(name, source, replaces, launch_count, numbers, **extra):
@@ -3194,6 +3484,12 @@ def main() -> None:
         row("scan_states", "scan_states.cu", "scan.py:61", j_launches, j),
         row("cross_attn_fwd", "cross_attn.cu", "xattn.py:211", g_launches, g),
         row("cross_attn_bwd", "cross_attn_bwd.cu", "xattn.py:234", gb_launches, gb),
+        row("selective_scan_fwd_k8", "selective_scan.cu", "scan_fused.py:147",
+            rs_launches["selective_scan_fwd"], rs_scan["selective_scan_fwd"]),
+        row("selective_scan_ckpt_k8", "selective_scan.cu", "scan_fused.py:261",
+            rs_train_launches["selective_scan_ckpt"], rs_scan["selective_scan_ckpt"]),
+        row("selective_scan_bwd_k8", "selective_scan_bwd.cu", "scan_fused.py:291",
+            rs_train_launches["selective_scan_bwd"], rs_scan["selective_scan_bwd"]),
     ]
     require(all(k["launches"] > 0 for k in kernels), "every kernel of the JSON line launched")
     print(json.dumps({"kernels": kernels}))

@@ -61,7 +61,9 @@ def parse_option(argv=None):
     p.add_argument("--bf16", action="store_true",
                    help="mixed precision: bf16 forward/backward, fp32 master params")
     p.add_argument("--fsdp", action="store_true", help="not ported yet (raises)")
-    p.add_argument("--remat", action="store_true", help="not ported yet (raises)")
+    p.add_argument("--remat", action="store_true",
+                   help="activation recomputation for the Mamba models (change_mamba, "
+                        "rs_mamba): each SS2D runs under torch.utils.checkpoint")
     p.add_argument("--profile", type=str, default="",
                    help="write a torch.profiler trace of training steps 11-15 of the first "
                         "epoch (1 to min(6, steps) on shorter epochs) to this directory")
@@ -105,14 +107,16 @@ def setup(opt) -> Run:
     if opt.fsdp:
         raise NotImplementedError("--fsdp: sharded training is not ported yet "
                                   "(ROADMAP.md queue 1 item 5, parallel)")
+    overrides = {}
     if opt.remat:
-        raise NotImplementedError("--remat: activation recomputation is not ported yet "
-                                  "(ROADMAP.md queue 1 item 6, the Mamba extras)")
+        if opt.model not in ("change_mamba", "rs_mamba"):
+            raise SystemExit(f"--remat supports change_mamba/rs_mamba, not {opt.model}")
+        overrides["use_checkpoint"] = True
     device = device_of(opt)
     os.makedirs(opt.output_dir, exist_ok=True)
     np.random.seed(opt.seed)
     torch.manual_seed(opt.seed)
-    model = get_model(opt.model, device=device)
+    model = get_model(opt.model, device=device, **overrides)
 
     train_ds = CDDataset(opt.data_dir, "train", seed=opt.seed)
     val_ds = CDDataset(opt.data_dir, "val", seed=opt.seed)

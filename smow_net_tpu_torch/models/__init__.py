@@ -1,8 +1,8 @@
 """Model registry of the port (mirrors smow_net_tpu.models.get_model).
 
-SMOW_Net, SMOW_Net_LW, ChangeMamba and CD-Mamba are ported so far; the other names
-of the JAX registry raise NotImplementedError naming the ROADMAP.md item
-that ports them.
+SMOW_Net, SMOW_Net_LW, ChangeMamba, CD-Mamba and RS-Mamba are ported so far;
+the other names of the JAX registry (the non-Mamba zoo) raise
+NotImplementedError naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -11,14 +11,13 @@ import torch
 
 __all__ = ["get_model", "list_models"]
 
-_MAMBA = {"rs_mamba": "ROADMAP.md queue 1 item 3 (rs_mamba, cross_scan8)"}
 _ZOO = ("fc_ef", "snunet", "dtcdscn", "ifn", "bit", "pa_former", "afcf3d",
         "seifnet", "tfi_gr", "a2net", "elgcnet", "changeformer", "scratchformer")
-_LATER = {**{n: "ROADMAP.md queue 1 item 4 (non-Mamba zoo)" for n in _ZOO}, **_MAMBA}
+_LATER = {n: "ROADMAP.md queue 1 item 4 (non-Mamba zoo)" for n in _ZOO}
 
 
 def list_models():
-    return ["smow_net", "smow_net_lw", "change_mamba", "cd_mamba"]
+    return ["smow_net", "smow_net_lw", "change_mamba", "cd_mamba", "rs_mamba"]
 
 
 def get_model(name: str, device="cuda", **kwargs) -> torch.nn.Module:
@@ -46,6 +45,10 @@ def get_model(name: str, device="cuda", **kwargs) -> torch.nn.Module:
         from .cd_mamba import CDMamba
 
         return CDMamba(**kwargs).to(device)
+    if name == "rs_mamba":
+        from .rs_mamba import RSMCD
+
+        return RSMCD(**kwargs).to(device)
     if name in _LATER:
         raise NotImplementedError(f"{name!r} is not ported yet: {_LATER[name]}")
     raise KeyError(f"unknown model {name!r}; available: {list_models()}")

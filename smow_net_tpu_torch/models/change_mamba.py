@@ -1,7 +1,9 @@
 """ChangeMamba: a siamese VSSM encoder and a spatio-temporal VSS decoder
 (port of smow_net_tpu/models/zoo/change_mamba.py; the reference's
 ChangeMambaBCD with depths (2, 2, 9, 2), dims 96..768, d_state 16,
-ssm_ratio 2, forward type v2, mlp_ratio 4, drop path 0.1).
+ssm_ratio 2, forward type v2, mlp_ratio 4, drop path 0.1). With
+`use_checkpoint` every SS2D, the encoder's and the STBlocks', is recomputed
+in the backward (the reference's use_checkpoint).
 
 The encoder runs once over the 2B-stacked pair (exact: the VSSM has no
 batch statistics). Each decoder level runs three STBlocks (1x1 conv then a
@@ -44,19 +46,20 @@ class ResBlock(nn.Module):
 
 
 class STBlock(nn.Sequential):
-    """1x1 conv to 128 channels, then a VSSBlock (drop path 0.1)."""
+    """1x1 conv to 128 channels, then a VSSBlock (drop path 0.1; its SS2D
+    recomputed in the backward with `remat`)."""
 
-    def __init__(self, in_ch: int):
-        super().__init__(nn.Conv2d(in_ch, 128, 1), Permute(0, 2, 3, 1), VSSBlock(128, 0.1),
-                         Permute(0, 3, 1, 2))
+    def __init__(self, in_ch: int, remat: bool = False):
+        super().__init__(nn.Conv2d(in_ch, 128, 1), Permute(0, 2, 3, 1),
+                         VSSBlock(128, 0.1, remat=remat), Permute(0, 3, 1, 2))
 
 
 class ChangeDecoder(nn.Module):
-    def __init__(self, dims):
+    def __init__(self, dims, remat: bool = False):
         super().__init__()
         for i, dim in zip((1, 2, 3, 4), dims):
             for j, in_ch in ((1, 2 * dim), (2, dim), (3, dim)):
-                self.add_module(f"st_block_{i}{j}", STBlock(in_ch))
+                self.add_module(f"st_block_{i}{j}", STBlock(in_ch, remat))
             self.add_module(f"fuse_layer_{i}", nn.Sequential(
                 nn.Conv2d(5 * 128, 128, 1), BatchNorm2d(128), nn.ReLU()))
         for i in (1, 2, 3):
@@ -82,10 +85,10 @@ class ChangeDecoder(nn.Module):
 
 class ChangeMamba(nn.Module):
     def __init__(self, depths=(2, 2, 9, 2), dims=(96, 192, 384, 768),
-                 drop_path_rate: float = 0.1):
+                 drop_path_rate: float = 0.1, use_checkpoint: bool = False):
         super().__init__()
-        self.encoder = VSSM(depths, dims, drop_path_rate)
-        self.decoder = ChangeDecoder(dims)
+        self.encoder = VSSM(depths, dims, drop_path_rate, use_checkpoint=use_checkpoint)
+        self.decoder = ChangeDecoder(dims, use_checkpoint)
         self.main_clf = nn.Conv2d(128, 2, 1)
 
     def forward(self, pre: torch.Tensor, post: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """JAX variables -> the port's state_dict (the inverse of
 smow_net_tpu/train/convert.py `load_smownet_state_dict` and
 `load_smownet_lw_state_dict`, and of smow_net_tpu/train/convert_zoo.py
-`convert_generic` with zoo_specs' "change_mamba" renames and its
-"cd_mamba" renames and hook).
+`convert_generic` with zoo_specs' "change_mamba" and "rs_mamba" renames and
+its "cd_mamba" renames and hook).
 
 `variables` is the JAX `{"params", "batch_stats"}` tree as nested dicts of
 numpy arrays. Layout rules, JAX (channels-last) -> torch:
@@ -17,6 +17,7 @@ numpy arrays. Layout rules, JAX (channels-last) -> torch:
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import Dict
 
@@ -225,10 +226,34 @@ _CHANGE_MAMBA_RENAMES = (
     (r"^fuse_layer_(\d)$", r"decoder.fuse_layer_\1.0"),
     (r"^fuse_bn_(\d)$", r"decoder.fuse_layer_\1.1"),
     (r"^smooth_layer_(\d)\.", r"decoder.smooth_layer_\1."),
+    # VSSM's patch embed v1 (no model of the registry uses it)
+    (r"^encoder\.patch_embed_conv$", "encoder.patch_embed.0"),
+    (r"^encoder\.patch_embed_norm$", "encoder.patch_embed.2"),
+)
+
+# (smow_net_tpu/train/zoo_specs.py "rs_mamba"; the reference spells its
+# decoder blocks `deocder_block`)
+_RS_MAMBA_RENAMES = (
+    (r"^enc(\d)_block(\d+)\.",
+     lambda mo: f"encoder_block{int(mo.group(1)) + 1}.blocks.{mo.group(2)}."),
+    (r"^down(\d)_conv$", lambda mo: f"encoder_block{int(mo.group(1)) + 1}.downsample.1"),
+    (r"^down(\d)_norm$", lambda mo: f"encoder_block{int(mo.group(1)) + 1}.downsample.3"),
+    (r"^patch_embed_conv1$", "patch_embed.0"),
+    (r"^patch_embed_norm1$", "patch_embed.2"),
+    (r"^patch_embed_conv2$", "patch_embed.5"),
+    (r"^patch_embed_norm2$", "patch_embed.7"),
+    (r"^fuse_block(\d)$", r"fuse_block\1.fuse.0"),
+    (r"^fuse_bn(\d)$", r"fuse_block\1.fuse.1"),
+    (r"^decoder_block(\d)$", r"deocder_block\1.fuse.0"),
+    (r"^decoder_bn(\d)$", r"deocder_block\1.fuse.1"),
+    (r"^up_conv1$", "upsample_x4.0"),
+    (r"^up_bn1$", "upsample_x4.1"),
+    (r"^up_conv2$", "upsample_x4.4"),
+    (r"^up_bn2$", "upsample_x4.5"),
 )
 
 
-def _change_mamba(w: _Writer) -> None:
+def _renamed_walk(w: _Writer, renames) -> None:
     """Walk the flax tree: each module's path, renamed, is the torch prefix;
     conv kernels (4-D) and Dense kernels (2-D) change layout, LayerNorm and
     BatchNorm scales become weights, BN statistics come from batch_stats,
@@ -237,7 +262,7 @@ def _change_mamba(w: _Writer) -> None:
     def walk(node, stats, path):
         module = ".".join(path)
         prefix = module
-        for pat, rep in _CHANGE_MAMBA_RENAMES:
+        for pat, rep in renames:
             prefix = re.sub(pat, rep, prefix)
         for leaf, value in node.items():
             if isinstance(value, dict):
@@ -332,14 +357,16 @@ def _cd_mamba(w: _Writer) -> None:
     walk(w.params, ())
 
 
-_MODELS = {"smow_net": _smownet, "smow_net_lw": _smownet_lw, "change_mamba": _change_mamba,
-           "cd_mamba": _cd_mamba}
+_MODELS = {"smow_net": _smownet, "smow_net_lw": _smownet_lw,
+           "change_mamba": functools.partial(_renamed_walk, renames=_CHANGE_MAMBA_RENAMES),
+           "cd_mamba": _cd_mamba,
+           "rs_mamba": functools.partial(_renamed_walk, renames=_RS_MAMBA_RENAMES)}
 
 
 def state_dict_from_jax(variables, model: str = "smow_net") -> Dict[str, torch.Tensor]:
     """The port's state_dict of `model` ("smow_net", "smow_net_lw",
-    "change_mamba" or "cd_mamba") from the JAX variables; BN running
-    statistics come from `batch_stats`."""
+    "change_mamba", "cd_mamba" or "rs_mamba") from the JAX variables; BN
+    running statistics come from `batch_stats`."""
     w = _Writer(variables)
     _MODELS[model](w)
     return w.sd

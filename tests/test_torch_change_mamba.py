@@ -79,10 +79,10 @@ def _seeded(tree, rng, path=()):
     return v.astype(np.float32)
 
 
-def _torch_name(path) -> str:
+def _torch_name(path, renames=_CHANGE_MAMBA_RENAMES) -> str:
     """A flax module path -> the port's module name (the converter's rule)."""
     name = ".".join(path)
-    for pat, rep in _CHANGE_MAMBA_RENAMES:
+    for pat, rep in renames:
         name = re.sub(pat, rep, name)
     return name
 
@@ -103,7 +103,7 @@ class _Masks:
         return self.table[key]
 
 
-def _jax_interceptor(masks: _Masks):
+def _jax_interceptor(masks: _Masks, renames=_CHANGE_MAMBA_RENAMES):
     calls = {}
 
     def intercept(next_fun, args, kwargs, context):
@@ -113,7 +113,7 @@ def _jax_interceptor(masks: _Masks):
         x, train = args
         if m.rate == 0.0 or not train:
             return x
-        name = _torch_name(m.path)
+        name = _torch_name(m.path, renames)
         calls[name] = calls.get(name, -1) + 1
         mask = masks.get(name, calls[name], x.shape[0]).reshape((-1,) + (1,) * (x.ndim - 1))
         return x * jnp.asarray(mask) / (1.0 - m.rate)
@@ -307,4 +307,4 @@ def test_registry():
     with torch.device("meta"):
         assert sum(p.numel() for p in ChangeMamba().parameters()) == 48_561_794
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("rs_mamba", device="cpu")
+        get_model("bit", device="cpu")

@@ -150,7 +150,7 @@ def test_flags_and_devices_that_raise(runs):
     args = (runs["root"], str(runs["tmp"] / "never"), 1)
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         cli_train.setup(_train_opt(*args, "--fsdp"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(SystemExit, match="--remat supports change_mamba/rs_mamba, not smow_net"):
         cli_train.setup(_train_opt(*args, "--remat"))
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         cli_train.setup(_train_opt(*args, "--model", "bit"))
@@ -162,3 +162,27 @@ def test_flags_and_devices_that_raise(runs):
             cli_train.setup(cli_train.parse_option(["--data_dir", runs["root"]]))
         with pytest.raises(SystemExit, match="no CUDA device"):
             cli_test.main(cli_test.parse_option(["--checkpoint", "best"]))
+
+
+def test_remat_builds_the_mamba_models_with_checkpointing(runs, monkeypatch):
+    """--remat as the JAX package's train.py takes it: use_checkpoint=True
+    for change_mamba and rs_mamba, nothing without the flag (argument
+    handling and the model's construction only: the fake get_model stops
+    the setup there)."""
+    import smow_net_tpu_torch.models as models
+
+    class Built(Exception):
+        pass
+
+    def fake(name, device="cuda", **kwargs):
+        raise Built(name, str(device), kwargs)
+
+    monkeypatch.setattr(models, "get_model", fake)
+    args = (runs["root"], str(runs["tmp"] / "never"), 1)
+    for name in ("change_mamba", "rs_mamba"):
+        for flags, kwargs in (((), {}), (("--remat",), {"use_checkpoint": True})):
+            with pytest.raises(Built) as built:
+                cli_train.setup(_train_opt(*args, "--model", name, *flags))
+            assert built.value.args == (name, "cpu", kwargs)
+    with pytest.raises(SystemExit, match="not cd_mamba"):
+        cli_train.setup(_train_opt(*args, "--model", "cd_mamba", "--remat"))

@@ -24,6 +24,7 @@ from smow_net_tpu_torch.train import checkpoint, ingest, metrics, pretrained
 from smow_net_tpu_torch.train.convert import state_dict_from_jax
 from smow_net_tpu_torch.train.trainer import create_train_state, make_optimizer
 from test_torch_smow_net import _seeded
+from test_torch_scan import one_torch_thread  # noqa: F401  (autouse: the port on one thread)
 
 SIZE = 64
 MODELS = ("smow_net", "smow_net_lw")
@@ -152,13 +153,14 @@ def test_load_torch_state_dict_forms(tmp_path, setups):
 
 def test_ingest_refuses_unported_and_unknown_models():
     model = torch.nn.Linear(1, 1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        ingest.ingest_torch_checkpoint("rs_mamba", {}, model)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        ingest.ingest_torch_checkpoint("fc_ef", {}, model)
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         ingest.ingest_torch_checkpoint("bit", {}, model)
     with pytest.raises(ValueError):
         ingest.ingest_torch_checkpoint("no_such_model", {}, model)
-    assert ingest.supported_models() == ("smow_net", "smow_net_lw", "change_mamba", "cd_mamba")
+    assert ingest.supported_models() == ("smow_net", "smow_net_lw", "change_mamba", "cd_mamba",
+                                         "rs_mamba")
 
 
 # ---------------------------------------------------------------- pretrained

@@ -2,8 +2,8 @@
 in every padding mode and align_corners flag, the tile scatter of B, A-bwd,
 D, E and D-bwd on grids that take its sorted path and its direct one, F and
 F-bwd, the layer at D = 128 and 64; the selective scan's I-fwd, I-ckpt and
-I-bwd, over the grouped layout (I) and the flat one (H), seeded, at any
-number of rows, the forward sweep on misaligned rows; H-seg's carry and
+I-bwd, over the grouped layout (I, K = 4 and 8) and the flat one (H),
+seeded, at any number of rows, a K = 8 train step in deterministic mode, the forward sweep on misaligned rows; H-seg's carry and
 adjoint carry (ragged, misaligned, bf16, bitwise alike twice); the general
 scan's J; G, the layer's attention sublayer, at D = 64, 128 and 512, and
 G-bwd at every built width, their bf16 tensor-core bodies bitwise alike
@@ -797,6 +797,61 @@ def test_scan_bwd_kernels_match_autograd_of_plain(dev, shape, dtype):
     for g, w, a in zip(got, want, args):
         assert g.dtype == a.dtype
         _close(g, w, 1e-6, 1e-4 if dtype == torch.float32 else BF16_REL)
+
+
+# K = 8: RS-Mamba's eight directions, twice the rows of a K = 4 call at the
+# same batch; Dk = 40 and L = 100 as above
+@pytest.mark.parametrize("shape", [(2, 8, 256, 64), (1, 8, 100, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_scan_kernels_at_k8_match_plain(dev, shape, dtype):
+    """I-fwd, and I-ckpt + I-bwd + the epilogue, at K = 8 against the plain
+    version (bounds as the K = 4 tests)."""
+    args = _scan_inputs(dev, shape, 23)
+    args = [(a.to(dtype) if i in (0, 1, 3, 4) else a).requires_grad_()
+            for i, a in enumerate(args)]
+    gy = torch.from_numpy(np.random.default_rng(24).normal(size=shape).astype(np.float32)).to(
+        dev, dtype)
+    before = {n: _kernels.launches[n] for n in ("selective_scan_fwd", "selective_scan_ckpt",
+                                                "selective_scan_bwd")}
+    y = scan.cross_selective_scan(*args)
+    got = torch.autograd.grad(y, args, gy)
+    torch.cuda.synchronize()
+    assert all(_kernels.launches[n] == c + 1 for n, c in before.items())
+    ref = [a.detach().float().requires_grad_() for a in args]
+    want_y = scan.cross_selective_scan_plain(*ref)
+    want = torch.autograd.grad(want_y, ref, gy.float())
+    _close(y, want_y, 1e-6, 1e-5 if dtype == torch.float32 else BF16_REL)
+    for g, w, a in zip(got, want, args):
+        assert g.dtype == a.dtype
+        _close(g, w, 1e-6, 1e-4 if dtype == torch.float32 else BF16_REL)
+
+
+def test_cross_scan8_train_step_runs_in_deterministic_mode(dev, monkeypatch):
+    """A train step of a VSSBlock at K = 8 (cross_scan8's gathers, whose
+    backward gathers by the inverse permutation; kernel I; AdamW) under
+    torch.use_deterministic_algorithms: it raises nothing, and two runs
+    from one seed give the same bits."""
+    from smow_net_tpu_torch.nn.ssm import VSSBlock
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = []
+        for _ in range(2):
+            torch.manual_seed(25)
+            block = VSSBlock(32, k_group=8).to(dev)
+            opt = torch.optim.AdamW(block.parameters(), lr=1e-3)
+            x = torch.randn(2, 16, 12, 32, device=dev,
+                            generator=torch.Generator(dev).manual_seed(26))
+            before = _kernels.launches["selective_scan_bwd"]
+            block(x).square().mean().backward()
+            opt.step()
+            assert _kernels.launches["selective_scan_bwd"] == before + 1
+            runs.append([p.detach().clone() for p in block.parameters()])
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def _no_softplus(args):

@@ -59,6 +59,7 @@ from smow_net_tpu_torch.train.trainer import (create_train_state, make_optimizer
                                               make_train_step, select_pred)
 from test_torch_smow_net_lw import seeded_batch, seeded_variables
 from test_torch_train_step import _f64, _x64
+from test_torch_scan import one_torch_thread  # noqa: F401  (autouse: the port on one thread)
 
 LR = 1e-4
 UNUSED = "backbone.features.18."

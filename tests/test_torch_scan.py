@@ -60,7 +60,11 @@ def one_torch_thread():
     up to 1.5e-4 relative off, and the scan output up to 3.6e-5 of its
     largest element. A bare `torch.exp` of 8192 values, the first in a
     process that had run a jitted JAX op, showed it once in 60 processes
-    (none in 60 without JAX). The cause inside torch or MKL is not known."""
+    (none in 60 without JAX). The cause inside torch or MKL is not known.
+    One thread also keeps the port's tests from oversubscribing the cores
+    beside the test run's other workers, where torch's OpenMP pool spins:
+    tests/test_torch_lw_train_step.py's float64 step took 447 s instead of
+    25 beside five busy cores."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

@@ -23,6 +23,7 @@ from smow_net_tpu.train.trainer import make_eval_step as make_jax_eval_step
 from smow_net_tpu_torch.models import get_model
 from smow_net_tpu_torch.train.convert import state_dict_from_jax
 from smow_net_tpu_torch.train.trainer import make_eval_step
+from test_torch_scan import one_torch_thread  # noqa: F401  (autouse: the port on one thread)
 
 SIZE, BATCH = 64, 2
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -103,6 +104,7 @@ def test_eval_step_matches_jax(runs):
 def test_port_imports_no_jax():
     code = (
         "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
         "from smow_net_tpu_torch.models import get_model\n"
         "m = get_model('smow_net', device='cpu').eval()\n"
         "x = torch.randn(1, 3, 64, 64, generator=torch.Generator().manual_seed(0))\n"
@@ -131,6 +133,11 @@ def test_port_imports_no_jax():
         "cd = get_model('cd_mamba', device='cpu').eval()\n"
         "with torch.inference_mode():\n"
         "    y = cd(x[..., :32, :32], x[..., :32, :32].flip(-1))\n"
+        "assert y.shape == (1, 2, 32, 32) and bool(torch.isfinite(y).all())\n"
+        "rs = get_model('rs_mamba', device='cpu').eval()\n"
+        "assert sum(p.numel() for p in rs.parameters()) == 51_949_050\n"
+        "with torch.inference_mode():\n"
+        "    y = rs(x[..., :32, :32], x[..., :32, :32].flip(-1))\n"
         "assert y.shape == (1, 2, 32, 32) and bool(torch.isfinite(y).all())\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'flax', 'smow_net_tpu')]\n"
         "assert not bad, bad\n")

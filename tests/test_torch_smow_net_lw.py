@@ -25,6 +25,7 @@ from smow_net_tpu_torch.nn.mobilenetv2 import MobileNetV2
 from smow_net_tpu_torch.train.convert import state_dict_from_jax
 from smow_net_tpu_torch.train.trainer import make_eval_step
 from test_torch_smow_net import _seeded
+from test_torch_scan import one_torch_thread  # noqa: F401  (autouse: the port on one thread)
 
 SIZE, BATCH = 64, 2
 

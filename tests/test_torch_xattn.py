@@ -17,6 +17,7 @@ import torch
 from smow_net_tpu.ops import xattn as jx
 from smow_net_tpu.ops.pallas import xattn as px
 from smow_net_tpu_torch.ops import xattn as tx
+from test_torch_scan import one_torch_thread  # noqa: F401  (autouse: the port on one thread)
 
 B, N, D, H_, M_, HID = 2, 512, 128, 8, 8, 256
 TOL = dict(rtol=2e-5, atol=2e-5)

@@ -20,6 +20,17 @@ BF16_REL = 2.0 ** -8
 EPS = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch on one thread: beside the test run's other workers, its
+    OpenMP pool oversubscribes the cores and spins (this file took 132 s
+    instead of 4 beside five busy cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(D, B=2, N=512, seed=11):
     """The layer's 14 inputs at bf16 values (as the card's checks make them)
     and a bf16 cotangent."""

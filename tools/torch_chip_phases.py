@@ -7,6 +7,7 @@
     python tools/torch_chip_phases.py --tree PATH adjcarry scatter
     python tools/torch_chip_phases.py --tree PATH 4c 4d attn
     python tools/torch_chip_phases.py --tree PATH states route
+    python tools/torch_chip_phases.py 27 28 29 30 31 32   # RS-Mamba and the layer family
 
 Builds the kernels of the checkout it runs from (or of --tree), sets the
 fp32 comparisons' flags as chip_smoke.py does (TF32 off) and runs the named
@@ -14,7 +15,9 @@ phases: 3 (D), 3b (E, C, A-bwd), 3c (A-fwd, B), 3d (the unfused chain), 3e
 (D-bwd), 3f (the warp modes and NaN grids), 3g (the OFW route), 13 (I-fwd),
 14 (I-ckpt and I-bwd), 19 (kernel H), 20 (H on the shipped segmented
 route, and its A/B), 4 and 4b (F and F-bwd, the decoder layer, at D = 128
-and 64), 4c and 4d (G and G-bwd, its attention sublayer, an op path). Each
+and 64), 4c and 4d (G and G-bwd, its attention sublayer, an op path), 27
+(kernel I at K = 8), 28-31 (RS-Mamba: the eval step, the fp32 model, the
+train step, the fp32 gradients) and 32 (SS2D's other forms, and remat). Each
 phase holds its kernels against their plain
 versions and logs their times, as in the whole script; a phase that
 returns the JSON line's numbers prints them.
@@ -93,8 +96,8 @@ import sys
 import time
 
 PHASES = ["3", "3b", "3c", "3d", "3e", "3f", "3g", "4", "4b", "4c", "4d", "13", "14", "19",
-          "20", "fwd", "bwd", "layer", "adjcarry", "scatter", "attn", "states", "states_strips",
-          "route"]
+          "20", "27", "28", "29", "30", "31", "32", "fwd", "bwd", "layer", "adjcarry", "scatter",
+          "attn", "states", "states_strips", "route"]
 # the sweeps each timing mode takes
 SWEEPS = {"fwd": ("I-fwd", "I-ckpt", "H-fwd", "H-ckpt", "carry"), "bwd": ("I-bwd", "H-bwd")}
 
@@ -453,6 +456,13 @@ def main() -> None:
               "14": lambda d: cs.phase_scan_bwd(d, rate),
               "19": lambda d: cs.phase_flat_scan(d, rate),
               "20": lambda d: cs.phase_seg_scan(d, rate),
+              "27": lambda d: cs.phase_scan_k8(d, rate),
+              "28": lambda d: cs.phase_main_path(d, "rs_mamba", 28, rounds=1, per_round=3),
+              "29": lambda d: cs.phase_fp32_model(d, "rs_mamba", 29),
+              "30": lambda d: cs.phase_train(d, "rs_mamba", 30, rounds=2, per_round=2,
+                                             plain=False),
+              "31": lambda d: cs.phase_fp32_train_grads(d, "rs_mamba", 31),
+              "32": cs.phase_layer_family,
               "4": lambda d: {D: cs.phase_kernel_f(d, D) for D in (128, 64)},
               "4b": lambda d: {D: cs.phase_kernel_f_bwd(d, D) for D in (128, 64)},
               "4c": lambda d: cs.phase_kernel_g(d)[0], "4d": lambda d: cs.phase_kernel_g_bwd(d)[0],
