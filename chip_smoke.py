@@ -1,7 +1,9 @@
 #!/usr/bin/env python
 """Drive the PyTorch/CUDA port of SMOW_Net, SMOW_Net_LW, ChangeMamba,
 CD-Mamba and RS-Mamba, its general selective scan, the VMamba layer family,
-and its train and test CLIs from PNG files, on one NVIDIA GPU and check it.
+the first row of the comparison zoo (PA-Former, BIT, AFCF3D, IFN, SNUNet,
+DTCDSCN, FC-EF), and its train and test CLIs from PNG files, on one NVIDIA
+GPU and check it.
 
     python3 chip_smoke.py
 
@@ -166,7 +168,8 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      bound (the segmented kernels without their seeds, which must exceed
      it, and the kernels on bf16 inputs); the gradients against the plain
      scan's backward on kernel H's values (1e-3) and the strict plain path's
-     loss (1e-5); the strict path's worst leaf and the nudges' spread logged
+     loss (1e-5); the strict path's worst leaf logged (its leaves are not
+     held, so the gradient nudges of phases 18 and 31 are not run here)
   23. phase 7 for CD-Mamba: the train step at 16 x 256^2, H-fwd, H-ckpt and
      H-bwd 33 times per step (and, per segmented call, the carry twice and
      the adjcarry once), no other kernel; the kernel path's rounds alone
@@ -206,6 +209,23 @@ Phases (any failure raises and exits non-zero; no result line is printed):
      15, and both peaks of device memory; then one bf16 train step
      (`make_train_step`, bf16 copies of the masters swapped in) at batch 2
      with and without remat: the loss to 1e-6, I-fwd 30 and 15 launches
+  33. kernels A-fwd and A-bwd at C = 64 (PA-Former's PriorInterpreter:
+     zeros padding, align_corners=False) at (16, 64, 64, 64), fp32 and bf16,
+     vs their plain versions on PA-Former's grid (the identity plus a flow of
+     std 3 pixels, unclamped: it reaches past the image), a grid uniform in
+     [-1.2, 1.2] and the first with NaN coordinates (3f's bounds), one launch
+     a call; their bf16 times beside F.grid_sample and
+     grid_sampler_2d_backward in NCHW (CUDA graph) and the kernels alone
+  34-34d. phases 5-8 for get_model("pa_former") (numpy-seeded weights): the
+     eval step (A-fwd at C = 64 twice, F once per batch), the fp32 model,
+     the train step (A-fwd and A-bwd at C = 64 twice, F and F-bwd once per
+     step, no other kernel) and its fp32 gradients, held at 1e-3 of each
+     leaf's largest element against the plain backward on the kernels'
+     forward values (`plain_backward`)
+  35. the other six models of the zoo's first row (BIT, AFCF3D, IFN, SNUNet,
+     DTCDSCN, FC-EF; no port kernel, none launched) at 16 x 256^2: a bf16
+     eval batch and two bf16 train steps each, finite losses, ms per batch
+     and step and peak device memory
   26. (before 25's results) the CLIs from PNG files: the synthetic set
      at 256^2 (32 train, 16 val, 16 test) written by `data/png.py`;
      `cli.train` on SMOW_Net (bf16, batch 16, 8 loader threads, 2 epochs,
@@ -545,6 +565,31 @@ def plain_ops():
         xattn.cross_layer_head1 = saved[1]
         scan.cross_selective_scan = saved[2]
         scan.selective_scan = saved[3]
+
+
+@contextlib.contextmanager
+def plain_backward():
+    """Keep the kernels' forward values and take the plain versions'
+    backward (the reference of phase 34's fp32 gradients: its forward is
+    then bitwise the kernel path's, so no ReLU sits on the other side of its
+    kink): A-bwd becomes `grid_sample_bwd_plain`, F-bwd (and G-bwd) torch
+    autograd through the plain layer (sublayer) on the saved inputs."""
+    from smow_net_tpu_torch.ops import warp, xattn
+
+    saved = (warp.grid_sample_bwd, xattn._kernel_bwd)
+
+    def layer_bwd(args, gy, scale, perm, eps):
+        plain = xattn.cross_layer_head1_plain if len(args) == 14 else xattn.cross_attn_head1_plain
+        inputs = [a.detach().requires_grad_() for a in args]
+        with torch.enable_grad():
+            out = plain(*inputs, scale=scale, perm=perm, eps=eps)
+            return torch.autograd.grad(out, inputs, gy)
+
+    warp.grid_sample_bwd, xattn._kernel_bwd = warp.grid_sample_bwd_plain, layer_bwd
+    try:
+        yield
+    finally:
+        warp.grid_sample_bwd, xattn._kernel_bwd = saved
 
 
 class _KernelValuePlainGrad(torch.autograd.Function):
@@ -1115,6 +1160,91 @@ def phase_warp_modes(dev) -> None:
         check_nan(f"D-bwd C={C} NaN grid da", got[2][0], want[2][0], 1e-6, 1e-4)
         check_nan(f"D-bwd C={C} NaN grid dw", got[2][1], want[2][1], 1e-6, 1e-4)
         del a, grid, r, s, got, want
+
+
+PA_WARP = (16, 64, 64, 64)      # PA-Former's PriorInterpreter map at 16 x 256^2
+PA_MODE = ("zeros", False)
+
+
+def phase_warp_c64(dev) -> dict:
+    """Kernels A-fwd and A-bwd at C = 64 (PA-Former's PriorInterpreter:
+    zeros padding, align_corners=False) against their plain versions, fp32
+    and bf16, on PA-Former's grid (the identity plus an i.i.d. flow of std 3
+    pixels, unclamped: it reaches past the image), on a grid uniform in
+    [-1.2, 1.2] and on the first with NaN coordinates; then their bf16
+    times beside the library calls."""
+    from smow_net_tpu_torch.ops import _kernels, warp
+
+    log("phase 33: kernels A-fwd and A-bwd at C = 64, PA-Former's (16, 64, 64, 64), zeros "
+        "padding, align_corners=False, fp32 and bf16, vs their plain versions (outputs 1e-5 of "
+        "the largest element, bf16 one rounding; weight rows and dgrid 1e-4)")
+    for kernel in ("grid_sample_fwd_kernel", "grid_sample_bwd_kernel"):
+        for line in ptxas_lines(kernel):
+            if "Li64E" in line:
+                log(f"  ptxas {line}")
+    rng = np.random.default_rng(33)
+    B, H, W, C = PA_WARP
+    x32 = torch.from_numpy(rng.normal(size=PA_WARP).astype(np.float32)).to(dev)
+    gy32 = torch.from_numpy(rng.normal(size=PA_WARP).astype(np.float32)).to(dev)
+    flow = torch.from_numpy((rng.normal(size=(B, H, W, 2)) * 3.0).astype(np.float32)).to(dev)
+    grids = {"PA-Former grid": warp.offset_grid(flow, H, W),
+             "uniform [-1.2, 1.2]": torch.from_numpy(
+                 rng.uniform(-1.2, 1.2, size=(B, H, W, 2)).astype(np.float32)).to(dev)}
+    grids["NaN grid"] = with_nans(grids["PA-Former grid"])
+    outside = float(((grids["PA-Former grid"].abs() > 1.0).any(-1)).float().mean())
+    log(f"  PA-Former grid: {outside:.3f} of its points outside [-1, 1]")
+    names = ("grid_sample_fwd_c64", "grid_sample_bwd_c64")
+    results = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x, gy = x32.to(dt), gy32.to(dt)
+        rtol = 1e-5 if dt == torch.float32 else BF16_REL
+        for label, grid in grids.items():
+            name = f"{label} {str(dt)[6:]}"
+            before = {n: _kernels.launches[n] for n in names}
+            out = warp.grid_sample(x, grid, *PA_MODE)
+            dx, dw = warp.grid_sample_bwd(x, gy, grid, *PA_MODE)
+            torch.cuda.synchronize()
+            require(all(_kernels.launches[n] == before[n] + 1 for n in names),
+                    "A-fwd and A-bwd at C = 64 launched once per call")
+            require(out.dtype == dx.dtype == dt, "A-fwd and A-bwd return x's dtype")
+            want = warp.grid_sample_plain(x.float(), grid, *PA_MODE)
+            dx_p, dw_p = warp.grid_sample_bwd_plain(x.float(), gy.float(), grid, *PA_MODE)
+            dgrid = warp.corner_weights_vjp(grid, dw, H, W, *PA_MODE)
+            dgrid_p = warp.corner_weights_vjp(grid, dw_p, H, W, *PA_MODE)
+            hold = check_nan if label == "NaN grid" else check
+            err_a = hold(f"A-fwd {name}", out, want, 0.0, rtol)
+            err_b = hold(f"A-bwd {name} dx", dx, dx_p, 0.0, rtol)
+            hold(f"A-bwd {name} dw", dw, dw_p, 0.0, 1e-4)
+            hold(f"A-bwd {name} dgrid", dgrid, dgrid_p, 0.0, 1e-4)
+            if label == "PA-Former grid" and dt == torch.bfloat16:
+                results["grid_sample_fwd_c64"] = {"max_abs_err": err_a}
+                results["grid_sample_bwd_c64"] = {"max_abs_err": err_b}
+                log_branches(label, grid, C)
+    # times at the main path's shape and dtype (bf16, PA-Former's grid), the
+    # one PyTorch call for each beside them: F.grid_sample in NCHW (zeros,
+    # align_corners=False), and its backward for the input and the grid
+    x, gy, grid = x32.bfloat16(), gy32.bfloat16(), grids["PA-Former grid"]
+    x_nchw, gy_nchw = (t.permute(0, 3, 1, 2).contiguous() for t in (x, gy))
+    grid_bf = grid.bfloat16()
+    out = warp.grid_sample(x, grid, *PA_MODE)
+    dx, dw = warp.grid_sample_bwd(x, gy, grid, *PA_MODE)
+    a_call = lambda: warp.grid_sample(x, grid, *PA_MODE)
+    b_call = lambda: warp.grid_sample_bwd(x, gy, grid, *PA_MODE)
+    fwd, bwd = results["grid_sample_fwd_c64"], results["grid_sample_bwd_c64"]
+    fwd.update(ms=graph_ms(a_call),
+               plain_ms=graph_ms(lambda: warp.grid_sample_plain(x, grid, *PA_MODE)),
+               library_ms=graph_ms(lambda: torch.nn.functional.grid_sample(
+                   x_nchw, grid_bf, "bilinear", "zeros", False)),
+               **bound(nbytes(x, grid, out), 8 * out.numel()))
+    bwd.update(ms=graph_ms(b_call),
+               plain_ms=graph_ms(lambda: warp.grid_sample_bwd_plain(x, gy, grid, *PA_MODE)),
+               library_ms=graph_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+                   gy_nchw, x_nchw, grid_bf, 0, 0, False, [True, True])),
+               **bound(nbytes(x, gy, grid, dw) + dx.numel() * 4, 16 * gy.numel()))
+    log_times(results, "C = 64")
+    log(f"  kernels alone (profiler): A-fwd {kernel_only_ms(a_call, 'grid_sample_fwd'):.4f} ms, "
+        f"A-bwd {kernel_only_ms(b_call, 'grid_sample_bwd'):.4f} ms")
+    return results
 
 
 def phase_ofw_route(dev) -> None:
@@ -2448,6 +2578,8 @@ EVAL_KERNELS = {
     "smow_net_lw": {"token_scatter_fwd": 1, "xattn_layer_fwd": 1},
     "change_mamba": {"selective_scan_fwd": 27},
     "rs_mamba": {"selective_scan_fwd": 15},
+    # the PriorInterpreter warps each image's stride-4 map once
+    "pa_former": {"grid_sample_fwd_c64": 2, "xattn_layer_fwd": 1},
 }
 # the train step's kernels per model and their launches per step, and the
 # kernels it must not launch
@@ -2459,6 +2591,8 @@ TRAIN_KERNELS = {
                                   "xattn_layer_bwd"), 1),
     "change_mamba": dict.fromkeys(SCAN_KERNELS, 27),
     "rs_mamba": dict.fromkeys(SCAN_KERNELS, 15),
+    "pa_former": {"grid_sample_fwd_c64": 2, "grid_sample_bwd_c64": 2, "xattn_layer_fwd": 1,
+                  "xattn_layer_bwd": 1},
 }
 TRAIN_ABSENT = {
     "smow_net": ("token_scatter_fwd", "grid_sample_fwd", "grid_sample_transpose")
@@ -2473,6 +2607,9 @@ TRAIN_ABSENT = {
     "cd_mamba": ("token_scatter_fwd", "token_scatter_fwd_eaw", "grid_sample_fwd",
                  "grid_sample_transpose", "grid_sample_t_vjp", "grid_sample_bwd",
                  "xattn_layer_fwd", "xattn_layer_bwd") + SCAN_KERNELS,
+    "pa_former": ("token_scatter_fwd", "token_scatter_fwd_eaw", "grid_sample_fwd",
+                  "grid_sample_transpose", "grid_sample_t_vjp", "grid_sample_bwd")
+    + SCAN_KERNELS,
 }
 
 
@@ -2878,7 +3015,7 @@ def leaf_errors(want: dict, got: dict) -> list:
     return sorted(rows, reverse=True)
 
 
-def phase_fp32_train_grads(dev, name: str, phase, **model_kwargs) -> None:
+def phase_fp32_train_grads(dev, name: str, phase, reference=None, **model_kwargs) -> None:
     from smow_net_tpu_torch.models import get_model
     from smow_net_tpu_torch.nn.ssm import DropPath
     from smow_net_tpu_torch.train.loss import bce_dice_loss
@@ -2923,7 +3060,12 @@ def phase_fp32_train_grads(dev, name: str, phase, **model_kwargs) -> None:
     flat = name == "cd_mamba"
     scan_model = flat or any(isinstance(m, DropPath) for m in model.modules())
     hybrid = _FlatKernelValuePlainGrad if flat else _KernelValuePlainGrad
-    reference = swap_scan(hybrid.apply, flat) if scan_model else plain_ops()
+    if reference is not None:
+        reference = reference()
+    elif scan_model:
+        reference = swap_scan(hybrid.apply, flat)
+    else:
+        reference = plain_ops()
     torch.backends.cudnn.deterministic = True
     try:
         loss_k, got = grads()
@@ -2936,8 +3078,11 @@ def phase_fp32_train_grads(dev, name: str, phase, **model_kwargs) -> None:
             plain = scan.selective_scan_plain if flat else scan.cross_selective_scan_plain
             with plain_ops():
                 loss_s, strict = grads()
+            # the nudges set the bound of the strict path's leaves; CD-Mamba's
+            # leaves are not held to it (below), so its two slow plain passes
+            # are not run
             kink = []
-            for eps in (1e-6, -1e-6):
+            for eps in (() if flat else (1e-6, -1e-6)):
                 with swap_scan(lambda *a, eps=eps: plain(*a, delta_softplus=True) * (1 + eps),
                                flat):
                     kink.append((leaf_errors(strict, grads()[1])[0], eps))
@@ -2948,11 +3093,11 @@ def phase_fp32_train_grads(dev, name: str, phase, **model_kwargs) -> None:
         for (err, n), eps in kink:
             log(f"  kink sensitivity: strict plain path vs plain with the scan's output x "
                 f"(1 {eps:+.0e}): worst leaf {n} {err:.3e} of its largest element")
-        spread = max(err for (err, _), _ in kink)
         err, n = leaf_errors(strict, got)[0]
-        bound = max(1e-3, 4 * spread)
+        bound = max([1e-3] + [4 * e for (e, _), _ in kink])
         log(f"  kernel path vs strict plain path: loss {loss_k:.7f} vs {loss_s:.7f}, worst leaf "
-            f"{n} {err:.3e} of its largest element (4x the nudges' spread: {bound:.3e})")
+            f"{n} {err:.3e} of its largest element"
+            + (f" (4x the nudges' spread: {bound:.3e})" if kink else " (not held: the loss is)"))
         require(abs(loss_k - loss_s) <= 1e-5 * abs(loss_s),
                 "the kernel path's loss differs from the strict plain path's")
         # CD-Mamba's kinks move whole leaves (the nudges' spread is ~0.5 of a
@@ -3133,6 +3278,66 @@ CLI_TRACE_FUNCTIONS = ("token_scatter_fwd_kernel", "grid_sample_t_vjp_kernel",
                           "grid_sample_bwd_kernel", "layer_fwd_tc", "layer_bwd_tc")
 # the four colours of `cli.test.colorize` as the PNG stores them (RGB)
 VIS_RGB = {(0, 0, 0): (0, 0), (255, 255, 255): (1, 1), (255, 0, 0): (1, 0), (0, 255, 0): (0, 1)}
+
+
+ZOO_OTHERS = ("bit", "afcf3d", "ifn", "snunet", "dtcdscn", "fc_ef")
+
+
+def phase_zoo(dev) -> dict:
+    """The first row's models without a kernel of the port (their convs,
+    norms, pools and attention are torch's): each at 16 x 256^2, one bf16
+    eval batch and two bf16 train steps over fp32 masters (make_train_step),
+    finite losses and probabilities, no port kernel launched; ms per batch
+    and per step (CUDA events, after a warm-up of each) and the peak device
+    memory of each."""
+    from smow_net_tpu_torch.models import get_model
+    from smow_net_tpu_torch.ops import _kernels
+    from smow_net_tpu_torch.train.trainer import make_eval_step
+
+    log("phase 35: the first row of the zoo without a port kernel (BIT, AFCF3D, IFN, SNUNet, "
+        "DTCDSCN, FC-EF) at 16 x 256^2: a bf16 eval batch, two bf16 train steps (times "
+        "indicative only: two calls after one warm-up, moved by the host's load)")
+    batches = make_batches(dev, 2, 16, 256, seed=35)
+    out = {}
+    for name in ZOO_OTHERS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_launches()
+        model = get_model(name)
+        model.load_state_dict(seeded_state_dict(model, 0))
+        params = sum(p.numel() for p in model.parameters())
+        eval_model = get_model(name).to(torch.bfloat16)
+        eval_model.load_state_dict(model.state_dict())
+        step = make_eval_step(eval_model)
+        torch.cuda.reset_peak_memory_stats()
+        step(batches[0])                                    # warm-up
+        eval_ms = cuda_ms(lambda: step(batches[1]), iters=2, warmup=0)
+        cm, loss, pred = step(batches[1])
+        require(bool(torch.isfinite(loss)) and bool(torch.isfinite(pred).all())
+                and pred.shape == (16, 256, 256), f"{name}: eval loss and predictions finite")
+        eval_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del eval_model, step
+        _, state, train = _train_setup(name, torch.bfloat16, 3)
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(train(state, batches[0]))]          # warm-up step
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(2):
+            losses.append(float(train(state, batches[0])))
+        end.record()
+        torch.cuda.synchronize()
+        train_ms = start.elapsed_time(end) / 2
+        train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        require(all(np.isfinite(losses)), f"{name}: train losses finite: {losses}")
+        require(not any(_kernels.launches.values()),
+                f"{name} launched a port kernel: {dict(_kernels.launches)}")
+        log(f"  {name}: {params:,} parameters; eval {eval_ms:.2f} ms/batch (peak "
+            f"{eval_peak:.2f} GiB), eval loss {float(loss):.5f}; train {train_ms:.2f} ms/step "
+            f"(peak {train_peak:.2f} GiB), losses {' '.join(f'{v:.5f}' for v in losses)}")
+        out[name] = dict(eval_ms=eval_ms, train_ms=train_ms, eval_peak=eval_peak,
+                         train_peak=train_peak)
+        del model, state, train
+    return out
 
 
 def _cli(fn, *args):
@@ -3414,6 +3619,14 @@ def main() -> None:
     rs_train_launches = phase_train(dev, "rs_mamba", 30, rounds=2, per_round=2, plain=False)
     phase_fp32_train_grads(dev, "rs_mamba", 31)
     phase_layer_family(dev)
+    warp64 = phase_warp_c64(dev)
+    pa_launches = phase_main_path(dev, "pa_former", 34, rounds=2, per_round=3)
+    phase_fp32_model(dev, "pa_former", "34b")
+    pa_train = phase_train(dev, "pa_former", "34c", rounds=1, per_round=3)
+    phase_fp32_train_grads(dev, "pa_former", "34d", reference=plain_backward)
+    log(f"  PA-Former's launches: per 3 eval batches {pa_launches}; per 6 train steps "
+        + str({n: pa_train[n] for n in TRAIN_KERNELS['pa_former']}))
+    phase_zoo(dev)
     phase_clis(dev, smi.stdout)
     reset_launches()            # and no phase since phase 26's reset launched G or G-bwd
 
@@ -3435,7 +3648,9 @@ def main() -> None:
         "every counter reset from phase 5 on found them at 0; the K = 8 rows: I-fwd from "
         "RS-Mamba's eval path (phase 28, 3 batches), I-ckpt and I-bwd from its train step "
         f"(phase 30, 6 steps; its I-fwd {rs_train_launches['selective_scan_fwd']} times), their "
-        "errors and times from phase 27)")
+        "errors and times from phase 27; the C = 64 rows: A-fwd and A-bwd from PA-Former's "
+        f"train step (phase 34c, 6 steps; it ran F {pa_train['xattn_layer_fwd']} and F-bwd "
+        f"{pa_train['xattn_layer_bwd']} times), their errors and times from phase 33)")
     csrc, pallas = "smow_net_tpu_torch/csrc/", "smow_net_tpu/ops/pallas/"
 
     def row(name, source, replaces, launch_count, numbers, **extra):
@@ -3490,6 +3705,10 @@ def main() -> None:
             rs_train_launches["selective_scan_ckpt"], rs_scan["selective_scan_ckpt"]),
         row("selective_scan_bwd_k8", "selective_scan_bwd.cu", "scan_fused.py:291",
             rs_train_launches["selective_scan_bwd"], rs_scan["selective_scan_bwd"]),
+        row("grid_sample_fwd_c64", "grid_sample_fwd.cu", "warp.py:508",
+            pa_train["grid_sample_fwd_c64"], warp64["grid_sample_fwd_c64"]),
+        row("grid_sample_bwd_c64", "grid_sample_bwd.cu", "warp.py:519",
+            pa_train["grid_sample_bwd_c64"], warp64["grid_sample_bwd_c64"]),
     ]
     require(all(k["launches"] > 0 for k in kernels), "every kernel of the JSON line launched")
     print(json.dumps({"kernels": kernels}))

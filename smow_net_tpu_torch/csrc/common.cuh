@@ -126,13 +126,14 @@ __device__ __forceinline__ Corners bilinear_corners(float2 g, int H, int W) {
 }
 
 // The warp kernels' instantiations: f(TypeTag<T>, IntTag<C>, BoolTag<zeros>,
-// BoolTag<align>) for the element type (fp32 or bf16), C in {8, 16, 32} and
-// the four (padding, align_corners) pairs; any other C is refused.
+// BoolTag<align>) for the element type (fp32 or bf16), C in {8, 16, 32} (and
+// 64 with kWide: kernels A-fwd and A-bwd, PA-Former's warp) and the four
+// (padding, align_corners) pairs; any other C is refused.
 template <typename T> struct TypeTag { using type = T; };
 template <int V> using IntTag = std::integral_constant<int, V>;
 template <bool V> using BoolTag = std::integral_constant<bool, V>;
 
-template <typename F>
+template <bool kWide = false, typename F>
 cudaError_t dispatch_warp(int C, int is_bf16, int zeros, int align, F&& f) {
   auto modes = [&](auto t, auto c) -> cudaError_t {
     if (zeros) return align ? f(t, c, BoolTag<true>{}, BoolTag<true>{})
@@ -144,6 +145,9 @@ cudaError_t dispatch_warp(int C, int is_bf16, int zeros, int align, F&& f) {
     if (C == 8) return modes(t, IntTag<8>{});
     if (C == 16) return modes(t, IntTag<16>{});
     if (C == 32) return modes(t, IntTag<32>{});
+    if constexpr (kWide) {
+      if (C == 64) return modes(t, IntTag<64>{});
+    }
     return cudaErrorInvalidValue;
   };
   return is_bf16 ? widths(TypeTag<__nv_bfloat16>{}) : widths(TypeTag<float>{});

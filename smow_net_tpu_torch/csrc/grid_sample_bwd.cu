@@ -58,24 +58,48 @@ grid_sample_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy,
       continue;
     }
     const smow::Corners cr = smow::bilinear_corners<kZeros, kAlign>(__ldg(gridb + p), H, W);
-    float gv[C];
-    smow::load_f32<T, C>(gyb + (size_t)p * C, gv);
     float s[4];
+    if constexpr (C > 32) {
+      // 16 channels at a time: gy's chunk is staged, each corner's chunk
+      // dotted with it; the sums run over c in order, as below
+      constexpr int kChunk = 16;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float v[C];
-      smow::load_f32<T, C>(xb + (size_t)cr.idx[k] * C, v);
-      float dot = 0.f;
+      for (int k = 0; k < 4; ++k) s[k] = 0.f;
 #pragma unroll
-      for (int c = 0; c < C; ++c) dot += v[c] * gv[c];
-      s[k] = dot;
+      for (int c0 = 0; c0 < C; c0 += kChunk) {
+        float gv[kChunk];
+        smow::load_f32<T, kChunk>(gyb + (size_t)p * C + c0, gv);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float v[kChunk];
+          smow::load_f32<T, kChunk>(xb + (size_t)cr.idx[k] * C + c0, v);
+#pragma unroll
+          for (int c = 0; c < kChunk; ++c) s[k] += v[c] * gv[c];
+        }
+#pragma unroll
+        for (int i = 0; i < kChunk / 4; ++i)
+          sm.vals[slot * (C / 4) + c0 / 4 + i] =
+              make_float4(gv[4 * i], gv[4 * i + 1], gv[4 * i + 2], gv[4 * i + 3]);
+      }
+    } else {
+      float gv[C];
+      smow::load_f32<T, C>(gyb + (size_t)p * C, gv);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float v[C];
+        smow::load_f32<T, C>(xb + (size_t)cr.idx[k] * C, v);
+        float dot = 0.f;
+#pragma unroll
+        for (int c = 0; c < C; ++c) dot += v[c] * gv[c];
+        s[k] = dot;
+      }
+      smow::stage_row(sm, slot, gv);
     }
     float* dwb = dw + (size_t)b * 4 * P + p;
     dwb[0] = cr.wx[0] * s[0] + cr.wx[1] * s[1];   // dwy0
     dwb[P] = cr.wx[0] * s[2] + cr.wx[1] * s[3];   // dwy1
     dwb[2 * P] = cr.wy[0] * s[0] + cr.wy[1] * s[2];  // dwx0
     dwb[3 * P] = cr.wy[0] * s[1] + cr.wy[1] * s[3];  // dwx1
-    smow::stage_row(sm, slot, gv);
     smow::note_corners(sm, slot, cr, W, box);
   }
   smow::scatter_tile(sm, box, dx + (size_t)b * H * W * C, W);
@@ -86,8 +110,8 @@ grid_sample_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy,
 // x: (B, H, W, C) primal image; gy: (B, Hg, Wg, C) pixel cotangent, the
 // same dtype (fp32 or bf16); grid: (B, Hg, Wg, 2) fp32. Accumulates into
 // dx: (B, H, W, C) fp32, zeroed, and writes dw: (B, 4, Hg, Wg) fp32 rows
-// (dwy0, dwy1, dwx0, dwx1). C is 8, 16 or 32; zeros: zeros padding (else
-// border); align: align_corners.
+// (dwy0, dwy1, dwx0, dwx1). C is 8, 16, 32 or 64; zeros: zeros padding
+// (else border); align: align_corners.
 extern "C" int grid_sample_bwd(const void* x, const void* gy, const void* grid, void* dx,
                                void* dw, int B, int H, int W, int Hg, int Wg, int C,
                                int is_bf16, int zeros, int align, void* stream) {
@@ -95,8 +119,8 @@ extern "C" int grid_sample_bwd(const void* x, const void* gy, const void* grid, 
       W > smow::kCoordBits)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(smow::dispatch_warp(C, is_bf16, zeros, align,
-                                              [&](auto t, auto c, auto z, auto al) {
+  return static_cast<int>(smow::dispatch_warp<true>(C, is_bf16, zeros, align,
+                                                    [&](auto t, auto c, auto z, auto al) {
     using T = typename decltype(t)::type;
     constexpr int kC = decltype(c)::value;
     auto kernel = grid_sample_bwd_kernel<T, kC, decltype(z)::value, decltype(al)::value>;

@@ -46,11 +46,13 @@ constexpr int kScatterThreads = 256;
 constexpr int kWindowCells = 2048;   // box cells a block sorts its corners into
 
 // Grid pixels per block, TH x TW: fewer at wider C, so that a tile's rows
-// take 16 KB in fp32 at every C.
+// take 16 KB in fp32 at every C (at C = 64, A-bwd's only, a quarter of the
+// block's threads hold a pixel while the corners are noted).
 template <int C> struct ScatterTile;
 template <> struct ScatterTile<8> { static constexpr int kTH = 16, kTW = 32; };
 template <> struct ScatterTile<16> { static constexpr int kTH = 16, kTW = 16; };
 template <> struct ScatterTile<32> { static constexpr int kTH = 8, kTW = 16; };
+template <> struct ScatterTile<64> { static constexpr int kTH = 8, kTW = 8; };
 
 // Rows and columns below 2^30: bit 30 of a noted corner carries dy or dx.
 constexpr int kCoordBits = (1 << 30) - 1;

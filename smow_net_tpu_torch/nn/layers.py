@@ -82,12 +82,14 @@ class Residual(nn.Module):
 
 
 class SelfAttentionBlock(nn.Module):
-    """Multi-head self-attention, SMOW flavour (models/SMOW_Net.py:222-251):
-    scale dim_head^-0.5 and an output projection."""
+    """Multi-head self-attention with an output projection. The SMOW
+    flavour (models/SMOW_Net.py:222-251) scales the logits by dim_head^-0.5;
+    BIT's (compare/BIT.py:685-717) passes `scale_by_dim` for dim^-0.5."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int):
+    def __init__(self, dim: int, heads: int, dim_head: int, scale_by_dim: bool = False):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
+        self.scale = (dim if scale_by_dim else dim_head) ** -0.5
         inner = heads * dim_head
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
         self.to_out = nn.Sequential(nn.Linear(inner, dim))
@@ -96,7 +98,7 @@ class SelfAttentionBlock(nn.Module):
         b, n, _ = x.shape
         q, k, v = (t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
                    for t in self.to_qkv(x).chunk(3, dim=-1))
-        attn = torch.softmax(q @ k.transpose(-1, -2) * self.dim_head ** -0.5, dim=-1)
+        attn = torch.softmax(q @ k.transpose(-1, -2) * self.scale, dim=-1)
         out = (attn @ v).transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
         return self.to_out(out)
 

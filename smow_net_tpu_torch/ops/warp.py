@@ -21,10 +21,14 @@ plain version only for a CPU tensor and launches its kernel on a CUDA one:
   grid_sample_bwd        kernel A's backward (csrc/grid_sample_bwd.cu)
 
 A, B and C take both padding modes and both align_corners flags at C in
-{8, 16, 32}; D, E and D-bwd the OFW recipe at C in {8, 16}.
+{8, 16, 32}, A-fwd and A-bwd also at C = 64 (PA-Former's PriorInterpreter;
+launches counted as `grid_sample_fwd_c64` and `grid_sample_bwd_c64`); D, E
+and D-bwd the OFW recipe at C in {8, 16}.
 
-`flow_warp` (forward A, backward A-bwd) and `flow_warp_transpose` (forward
-B, backward C) are torch.autograd.Functions over a flow field.
+`bilinear_warp` (forward A, backward A-bwd; any grid, either padding mode
+and align_corners) is a torch.autograd.Function; `flow_warp` is it on the
+OFW grid of a flow field, and `flow_warp_transpose` (forward B, backward C)
+is the adjoint over a flow field.
 `token_softmax_scatter` differentiates the token chain in one of the three
 JAX train lowerings: the fused one, an autograd Function whose forward is D
 and whose backward is D-bwd; the hybrid, whose forward is E and whose
@@ -45,18 +49,22 @@ import torch
 from . import _kernels
 
 __all__ = ["grid_sample", "grid_sample_plain", "grid_sample_transpose",
-           "grid_sample_transpose_plain", "flow_grid", "corner_rows",
+           "grid_sample_transpose_plain", "offset_grid", "flow_grid", "corner_rows",
            "corner_weights_vjp", "token_scatter", "token_scatter_plain",
            "token_scatter_bwd", "token_scatter_bwd_plain",
            "grid_sample_t_vjp", "grid_sample_t_vjp_plain", "grid_sample_bwd",
-           "grid_sample_bwd_plain", "flow_warp", "flow_warp_transpose",
+           "grid_sample_bwd_plain", "bilinear_warp", "flow_warp", "flow_warp_transpose",
            "token_softmax_scatter", "tile_scatter_branches"]
 
 PADDING_MODES = ("border", "zeros")
 # csrc/tile_scatter.cuh (kernels B, A-bwd, D and E): the (TH, TW) tile of
 # grid pixels a block takes at each C (ScatterTile<C>), and the box cells
 # below which a block sorts its corners in shared memory (kWindowCells)
-SCATTER_TILES = {8: (16, 32), 16: (16, 16), 32: (8, 16)}
+SCATTER_TILES = {8: (16, 32), 16: (16, 16), 32: (8, 16), 64: (8, 8)}
+# channel counts kernels A-fwd and A-bwd are built for; the other warp
+# kernels take the first three
+WARP_CHANNELS = (8, 16, 32)
+SAMPLE_CHANNELS = WARP_CHANNELS + (64,)
 SCATTER_WINDOW_CELLS = 2048
 
 
@@ -169,17 +177,27 @@ def _bilinear(wy0, wy1, wx0, wx1):
     return wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1
 
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' arithmetic type: fp32, or float64 for float64
+    values (the CPU tests' float64 runs; the JAX package's XLA warp keeps the
+    values' dtype and takes its coordinates and weights in fp32, as these
+    do in every case)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _gather_corners(x: torch.Tensor, idx: torch.Tensor):
-    """The four corner rows of x (B, H, W, C) as fp32 (B, n, C) each."""
+    """The four corner rows of x (B, H, W, C) as (B, n, C) each, in fp32
+    (float64 for float64 x)."""
     B, H, W, C = x.shape
-    flat = x.reshape(B, H * W, C).float()
+    flat = x.reshape(B, H * W, C).to(_acc(x.dtype))
     return [torch.gather(flat, 1, idx[..., k:k + 1].expand(-1, -1, C)) for k in range(4)]
 
 
 def _scatter_corners(gf: torch.Tensor, idx: torch.Tensor, w, shape) -> torch.Tensor:
-    """sum_k w_k gf scattered to corner k: an fp32 (B, H, W, C) image."""
+    """sum_k w_k gf scattered to corner k: a (B, H, W, C) image in gf's
+    dtype (fp32, or float64)."""
     B, H, W, C = shape
-    out = torch.zeros(B, H * W, C, dtype=torch.float32, device=gf.device)
+    out = torch.zeros(B, H * W, C, dtype=gf.dtype, device=gf.device)
     for k in range(4):
         out.scatter_add_(1, idx[..., k:k + 1].expand(-1, -1, C), gf * w[k][..., None])
     return out.reshape(shape)
@@ -205,18 +223,28 @@ def grid_sample_transpose_plain(g: torch.Tensor, grid: torch.Tensor, out_hw,
     B, Hg, Wg, C = g.shape
     H, W = out_hw
     idx, sep = _corners(grid, H, W, (padding_mode, align_corners))
-    return _scatter_corners(g.reshape(B, Hg * Wg, C).float(), idx, _bilinear(*sep),
+    return _scatter_corners(g.reshape(B, Hg * Wg, C).to(_acc(g.dtype)), idx, _bilinear(*sep),
                             (B, H, W, C)).to(g.dtype)
 
 
-def flow_grid(flow: torch.Tensor, H: int, W: int) -> torch.Tensor:
-    """Identity grid linspace(-1, 1) plus flow / (W, H), clamped to [-1, 1]
-    (the reference OFW warp grid, models/SMOW_Net.py:612-631). fp32."""
+def offset_grid(flow: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """The identity grid linspace(-1, 1) (fp32) plus a pixel-space flow
+    (B, H, W, 2) divided by (W, H), unclamped (PA-Former's PriorInterpreter
+    grid, smow_net_tpu/models/zoo/pa_former.py:64-71). fp32, or float64 for
+    a float64 flow, as JAX's dtype promotion gives it."""
+    dt = _acc(flow.dtype)
     fy = torch.linspace(-1.0, 1.0, H, dtype=torch.float32, device=flow.device)
     fx = torch.linspace(-1.0, 1.0, W, dtype=torch.float32, device=flow.device)
     base = torch.stack(torch.meshgrid(fx, fy, indexing="xy"), dim=-1)   # (H, W, 2)
-    norm = torch.tensor([W, H], dtype=torch.float32, device=flow.device)
-    return (base[None] + flow.float() / norm).clamp(-1.0, 1.0)
+    norm = torch.tensor([W, H], dtype=dt, device=flow.device)
+    return base[None].to(dt) + flow.to(dt) / norm
+
+
+def flow_grid(flow: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """The identity grid plus flow / (W, H) in fp32, clamped to [-1, 1] (the
+    reference OFW warp grid, models/SMOW_Net.py:612-631; the JAX package's
+    `_flow_grid` casts the flow to fp32 first)."""
+    return offset_grid(flow.float(), H, W).clamp(-1.0, 1.0)
 
 
 def _weight_grads(corners, gf, wy0, wy1, wx0, wx1):
@@ -228,7 +256,7 @@ def _weight_grads(corners, gf, wy0, wy1, wx0, wx1):
                         wy0 * s00 + wy1 * s10, wy0 * s01 + wy1 * s11], dim=1)
 
 
-def _check_cuda(name: str, t: torch.Tensor, channels=(8, 16, 32)):
+def _check_cuda(name: str, t: torch.Tensor, channels=WARP_CHANNELS):
     if not t.is_cuda:
         raise ValueError(f"{name}: unsupported device {t.device}")
     if t.dtype not in (torch.float32, torch.bfloat16):
@@ -264,7 +292,7 @@ def grid_sample(x: torch.Tensor, grid: torch.Tensor, padding_mode: str = "border
     plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return grid_sample_plain(x, grid, padding_mode, align_corners)
-    _check_cuda("grid_sample", x)
+    _check_cuda("grid_sample", x, SAMPLE_CHANNELS)
     B, H, W, C = x.shape
     _check_grid("grid_sample", grid, B)
     _check_like("grid_sample", x, x=x, grid=grid)
@@ -272,7 +300,8 @@ def grid_sample(x: torch.Tensor, grid: torch.Tensor, padding_mode: str = "border
     out = torch.empty((B, Hg, Wg, C), dtype=x.dtype, device=x.device)
     _kernels.call("grid_sample_fwd", x.data_ptr(), grid.data_ptr(), out.data_ptr(),
                   B, H, W, Hg, Wg, C, int(x.dtype == torch.bfloat16),
-                  *_modes(padding_mode, align_corners), _kernels.stream_handle(x.device))
+                  *_modes(padding_mode, align_corners), _kernels.stream_handle(x.device),
+                  label="grid_sample_fwd_c64" if C == 64 else None)
     return out
 
 
@@ -401,7 +430,7 @@ def grid_sample_t_vjp_plain(xbar: torch.Tensor, g: torch.Tensor, grid: torch.Ten
     _, Hg, Wg, _ = grid.shape
     idx, sep = _corners(grid, H, W, (padding_mode, align_corners))
     corners = _gather_corners(xbar, idx)
-    gf = g.reshape(B, Hg * Wg, C).float()
+    gf = g.reshape(B, Hg * Wg, C).to(_acc(g.dtype))
     dg = sum(v * w[..., None] for v, w in zip(corners, _bilinear(*sep)))
     dw = _weight_grads(corners, gf, *sep)
     return dg.reshape(B, Hg, Wg, C).to(g.dtype), dw.reshape(B, 4, Hg, Wg)
@@ -442,7 +471,7 @@ def grid_sample_bwd_plain(x: torch.Tensor, gy: torch.Tensor, grid: torch.Tensor,
     B, H, W, C = x.shape
     _, Hg, Wg, _ = grid.shape
     idx, sep = _corners(grid, H, W, (padding_mode, align_corners))
-    gf = gy.reshape(B, Hg * Wg, C).float()
+    gf = gy.reshape(B, Hg * Wg, C).to(_acc(gy.dtype))
     dw = _weight_grads(_gather_corners(x, idx), gf, *sep)
     dx = _scatter_corners(gf, idx, _bilinear(*sep), x.shape)
     return dx.to(x.dtype), dw.reshape(B, 4, Hg, Wg)
@@ -454,7 +483,7 @@ def grid_sample_bwd(x: torch.Tensor, gy: torch.Tensor, grid: torch.Tensor,
     the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return grid_sample_bwd_plain(x, gy, grid, padding_mode, align_corners)
-    _check_cuda("grid_sample_bwd", x)
+    _check_cuda("grid_sample_bwd", x, SAMPLE_CHANNELS)
     B, H, W, C = x.shape
     _check_grid("grid_sample_bwd", grid, B)
     Hg, Wg = grid.shape[1:3]
@@ -466,7 +495,8 @@ def grid_sample_bwd(x: torch.Tensor, gy: torch.Tensor, grid: torch.Tensor,
     _kernels.call("grid_sample_bwd", x.data_ptr(), gy.data_ptr(), grid.data_ptr(),
                   dx.data_ptr(), dw.data_ptr(), B, H, W, Hg, Wg, C,
                   int(x.dtype == torch.bfloat16), *_modes(padding_mode, align_corners),
-                  _kernels.stream_handle(x.device))
+                  _kernels.stream_handle(x.device),
+                  label="grid_sample_bwd_c64" if C == 64 else None)
     return dx.to(x.dtype), dw
 
 
@@ -522,21 +552,22 @@ class _TokenSoftmaxScatterFused(torch.autograd.Function):
 
 
 class _FlowWarp(torch.autograd.Function):
-    """`grid_sample(x, grid)` with the VJP of the JAX package's
-    `grid_sample_pallas` (smow_net_tpu/ops/pallas/warp.py `_fwd`/`_bwd`):
-    forward A, backward A-bwd and the weight-gradient rows into dgrid. Each
-    op routes by device."""
+    """`grid_sample(x, grid, padding_mode, align_corners)` with the VJP of
+    the JAX package's `grid_sample_pallas` (smow_net_tpu/ops/pallas/warp.py
+    `_fwd`/`_bwd`): forward A, backward A-bwd and the weight-gradient rows
+    into dgrid. Each op routes by device."""
 
     @staticmethod
-    def forward(ctx, x, grid):
+    def forward(ctx, x, grid, padding_mode, align_corners):
         ctx.save_for_backward(x, grid)
-        return grid_sample(x, grid)
+        ctx.mode = (padding_mode, align_corners)
+        return grid_sample(x, grid, padding_mode, align_corners)
 
     @staticmethod
     def backward(ctx, gy):
         x, grid = ctx.saved_tensors
-        dx, dw = grid_sample_bwd(x, gy.to(x.dtype).contiguous(), grid)
-        return dx, corner_weights_vjp(grid, dw, *x.shape[1:3])
+        dx, dw = grid_sample_bwd(x, gy.to(x.dtype).contiguous(), grid, *ctx.mode)
+        return dx, corner_weights_vjp(grid, dw, *x.shape[1:3], *ctx.mode), None, None
 
 
 class _FlowWarpTranspose(torch.autograd.Function):
@@ -556,12 +587,23 @@ class _FlowWarpTranspose(torch.autograd.Function):
         return dg, corner_weights_vjp(grid, dw, *xbar.shape[1:3]), None, None
 
 
+def bilinear_warp(x: torch.Tensor, grid: torch.Tensor, padding_mode: str = "border",
+                  align_corners: bool = True) -> torch.Tensor:
+    """`grid_sample(x, grid, padding_mode, align_corners)` differentiable in
+    x and the fp32 grid (forward A, backward A-bwd), on any grid: the JAX
+    package's XLA `grid_sample` (smow_net_tpu/ops/warp.py:67), e.g.
+    PA-Former's learned, unclamped grid under zeros padding."""
+    _check_mode(padding_mode)
+    return _FlowWarp.apply(x.contiguous(), grid.float().contiguous(), padding_mode,
+                           bool(align_corners))
+
+
 def flow_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Warp x (B, H, W, C) by a pixel-space flow (B, H, W, 2) (the reference
     OFW warp, models/SMOW_Net.py:612-631): bilinear, border, align_corners,
     on `flow_grid(flow)`; differentiable in x and flow."""
     B, H, W, _ = x.shape
-    return _FlowWarp.apply(x.contiguous(), flow_grid(flow, H, W))
+    return bilinear_warp(x, flow_grid(flow, H, W))
 
 
 def flow_warp_transpose(g: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """JAX variables -> the port's state_dict (the inverse of
 smow_net_tpu/train/convert.py `load_smownet_state_dict` and
-`load_smownet_lw_state_dict`, and of smow_net_tpu/train/convert_zoo.py
-`convert_generic` with zoo_specs' "change_mamba" and "rs_mamba" renames and
-its "cd_mamba" renames and hook).
+`load_smownet_lw_state_dict`, of smow_net_tpu/train/convert_zoo.py
+`convert_generic` with zoo_specs' renames of the Mamba models and the
+ported zoo (PA-Former, BIT, AFCF3D, IFN, SNUNet, DTCDSCN) and its "cd_mamba"
+hook, and of zoo_specs' `convert_fc_ef`).
 
 `variables` is the JAX `{"params", "batch_stats"}` tree as nested dicts of
 numpy arrays. Layout rules, JAX (channels-last) -> torch:
@@ -253,26 +254,40 @@ _RS_MAMBA_RENAMES = (
 )
 
 
-def _renamed_walk(w: _Writer, renames) -> None:
-    """Walk the flax tree: each module's path, renamed, is the torch prefix;
-    conv kernels (4-D) and Dense kernels (2-D) change layout, LayerNorm and
-    BatchNorm scales become weights, BN statistics come from batch_stats,
-    and the SS2D leaves (x_proj_weight, A_logs, ...) keep their shapes."""
+def _renamed_walk(w: _Writer, renames, transposed=()) -> None:
+    """Walk the flax tree as convert_generic does (the inverse of it): each
+    module's path, renamed, is the torch prefix of its kernel, bias and
+    scale; conv kernels (the modules matching `transposed`: transposed
+    convs) and Dense kernels (2-D) change layout, LayerNorm and BatchNorm
+    scales become weights, BN statistics come from batch_stats; any other
+    leaf (the SS2D's x_proj_weight, A_logs, ..., position embeddings, PReLU
+    slopes) keeps its shape under its whole path, renamed."""
+
+    def rename(dotted):
+        for pat, rep in renames:
+            dotted = re.sub(pat, rep, dotted)
+        return dotted
 
     def walk(node, stats, path):
         module = ".".join(path)
-        prefix = module
-        for pat, rep in renames:
-            prefix = re.sub(pat, rep, prefix)
+        prefix = rename(module)
         for leaf, value in node.items():
             if isinstance(value, dict):
                 walk(value, (stats or {}).get(leaf), path + (leaf,))
             elif leaf == "kernel":
-                w.put(prefix + ".weight", j2t_conv(value) if value.ndim == 4 else j2t_linear(value))
+                if value.ndim == 2:
+                    value = j2t_linear(value)
+                elif any(re.search(p, module) for p in transposed):
+                    value = j2t_conv_transpose(value)
+                else:
+                    value = j2t_conv(value)
+                w.put(prefix + ".weight", value)
             elif leaf == "scale":
                 w.put(prefix + ".weight", value)
+            elif leaf == "bias":
+                w.put(f"{prefix}.bias" if prefix else leaf, value)
             else:
-                w.put(f"{prefix}.{leaf}" if prefix else leaf, value)
+                w.put(rename(f"{module}.{leaf}" if module else leaf), value)
         if stats and "mean" in stats:
             w.put(prefix + ".running_mean", stats["mean"])
             w.put(prefix + ".running_var", stats["var"])
@@ -357,16 +372,122 @@ def _cd_mamba(w: _Writer) -> None:
     walk(w.params, ())
 
 
+# The non-Mamba zoo (copies of smow_net_tpu/train/zoo_specs.py's renames
+# and transpose_conv patterns; FC-EF's are what its bespoke `convert_fc_ef`
+# reads): model -> (renames, the transposed convs' module paths)
+_RESNET_RENAMES = (
+    (r"\.layer(\d)_(\d)", r".layer\1.\2"),
+    (r"\.downsample_conv$", ".downsample.0"),
+    (r"\.downsample_bn$", ".downsample.1"),
+)
+_ZOO = {
+    "fc_ef": (((r"^conv(\w+)_bn$", r"bn\1"),), (r"^upconv\d$", r"^conv\d\dd$")),
+    "dtcdscn": ((
+        (r"^encoder(\d)_(\d)", r"encoder\1.\2"),
+        (r"\.se\.fc1$", ".se.fc.0"),
+        (r"\.se\.fc2$", ".se.fc.2"),
+        (r"\.downsample_conv$", ".downsample.0"),
+        (r"\.downsample_bn$", ".downsample.1"),
+        (r"\.scse\.ce1$", ".scse.channel_excitation.0"),
+        (r"\.scse\.ce2$", ".scse.channel_excitation.2"),
+        (r"\.scse\.se$", ".scse.spatial_se.0"),
+    ), (r"\.deconv2$", r"^finaldeconv1_master$")),
+    "ifn": ((
+        (r"^(t[12]_base)\.conv_(\d+)$", r"\1.features.\2"),
+        (r"\.conv$", ".0"),
+        (r"\.prelu_alpha$", ".1.weight"),
+        (r"\.bn$", ".2"),
+    ), (r"^trans_conv",)),
+    "bit": (_RESNET_RENAMES + (
+        (r"^enc0_attn\.to_out$", "transformer.layers.0.0.fn.fn.to_out.0"),
+        (r"^enc0_attn\.(\w+)$", r"transformer.layers.0.0.fn.fn.\1"),
+        (r"^enc0_norm1$", "transformer.layers.0.0.fn.norm"),
+        (r"^enc0_norm2$", "transformer.layers.0.1.fn.norm"),
+        (r"^enc0_ff\.fc1$", "transformer.layers.0.1.fn.fn.net.0"),
+        (r"^enc0_ff\.fc2$", "transformer.layers.0.1.fn.fn.net.3"),
+        (r"^dec(\d)_attn\.to_out$", r"transformer_decoder.layers.\1.0.fn.fn.to_out.0"),
+        (r"^dec(\d)_attn\.(\w+)$", r"transformer_decoder.layers.\1.0.fn.fn.\2"),
+        (r"^dec(\d)_norm1$", r"transformer_decoder.layers.\1.0.fn.norm"),
+        (r"^dec(\d)_norm2$", r"transformer_decoder.layers.\1.1.fn.norm"),
+        (r"^dec(\d)_ff\.fc1$", r"transformer_decoder.layers.\1.1.fn.fn.net.0"),
+        (r"^dec(\d)_ff\.fc2$", r"transformer_decoder.layers.\1.1.fn.fn.net.3"),
+        (r"^classifier_conv1$", "classifier.0"),
+        (r"^classifier_bn$", "classifier.1"),
+        (r"^classifier_conv2$", "classifier.3"),
+    ), ()),
+    "pa_former": (_RESNET_RENAMES + (
+        (r"\.PI\.down0_conv$", ".PI.down.0"),
+        (r"\.PI\.down0_bn$", ".PI.down.1"),
+        (r"\.PI\.down1_conv$", ".PI.down.3"),
+        (r"\.PI\.down1_bn$", ".PI.down.4"),
+        (r"\.PI\.down2_conv$", ".PI.down.6"),
+        (r"\.PI\.down2_bn$", ".PI.down.7"),
+        (r"\.(last_conv\d?)$", r".\1.0"),
+        (r"^decoder_conv$", "decoder.conv1"),
+        (r"^token_encoder\.attn\.to_qkv$", "token_encoder.transformer.layers.0.0.fn.to_qkv"),
+        (r"^token_encoder\.attn\.to_out$", "token_encoder.transformer.layers.0.0.fn.to_out.0"),
+        (r"^token_encoder\.norm1$", "token_encoder.transformer.layers.0.0.norm"),
+        (r"^token_encoder\.norm2$", "token_encoder.transformer.layers.0.1.norm"),
+        (r"^token_encoder\.ff\.fc1$", "token_encoder.transformer.layers.0.1.fn.net.0"),
+        (r"^token_encoder\.ff\.fc2$", "token_encoder.transformer.layers.0.1.fn.net.3"),
+        (r"^token_decoder\.attn\.to_out$",
+         "token_decoder.transformer_decoder.layers.0.0.fn.fn.to_out.0"),
+        (r"^token_decoder\.attn\.(to_\w)$",
+         r"token_decoder.transformer_decoder.layers.0.0.fn.fn.\1"),
+        (r"^token_decoder\.norm1$", "token_decoder.transformer_decoder.layers.0.0.fn.norm"),
+        (r"^token_decoder\.norm2$", "token_decoder.transformer_decoder.layers.0.1.fn.norm"),
+        (r"^token_decoder\.ff\.fc1$",
+         "token_decoder.transformer_decoder.layers.0.1.fn.fn.net.0"),
+        (r"^token_decoder\.ff\.fc2$",
+         "token_decoder.transformer_decoder.layers.0.1.fn.fn.net.3"),
+    ), ()),
+    "afcf3d": (_RESNET_RENAMES + (
+        (r"\.spatial$", ".conv3d_spatial"),
+        (r"\.time_(\d)$", r".conv3d_time_\1"),
+        (r"^AFCF(\d)_cat(\d)\.conv$", r"decoder.AFCF_fuse.AFCF\1.conv_cat.\2.conv_bn.0"),
+        (r"^AFCF(\d)_cat(\d)\.bn$", r"decoder.AFCF_fuse.AFCF\1.conv_cat.\2.conv_bn.1"),
+        (r"^AFCF(\d)_(conv_up|conv_down)\.conv$", r"decoder.AFCF_fuse.AFCF\1.\2.conv_bn.0"),
+        (r"^AFCF(\d)_(conv_up|conv_down)\.bn$", r"decoder.AFCF_fuse.AFCF\1.\2.conv_bn.1"),
+        (r"^AFCF(\d)_se\.", r"decoder.AFCF_fuse.AFCF\1.SE."),
+        (r"^SE_(\d)_cat(\d)\.conv$", r"decoder.output.conv_cat_\1.\2.conv_bn.0"),
+        (r"^SE_(\d)_cat(\d)\.bn$", r"decoder.output.conv_cat_\1.\2.conv_bn.1"),
+        (r"^SE_(\d)_se\.", r"decoder.output.SE_\1."),
+        (r"^dec_(conv_downsample|conv_upsample)\.conv$", r"decoder.output.\1.conv_bn.0"),
+        (r"^dec_(conv_downsample|conv_upsample)\.bn$", r"decoder.output.\1.conv_bn.1"),
+        (r"^(downT\d|downfinal)_(\d)\.conv$", r"decoder.output.\1.\2.conv_bn.0"),
+        (r"^(downT\d|downfinal)_(\d)\.bn$", r"decoder.output.\1.\2.conv_bn.1"),
+        (r"^out_conv1$", "decoder.output.out.0.conv_bn.0"),
+        (r"^out_bn1$", "decoder.output.out.0.conv_bn.1"),
+        (r"^out_conv2$", "decoder.output.out.1.conv_bn.0"),
+        (r"^out_bn2$", "decoder.output.out.1.conv_bn.1"),
+        (r"^out_conv3$", "decoder.output.out.2"),
+        (r"^reduction(\d)\.r(\d)\.conv$", r"decoder.reduction\1.reduce.\2.conv_bn.0"),
+        (r"^reduction(\d)\.r(\d)\.bn$", r"decoder.reduction\1.reduce.\2.conv_bn.1"),
+    ), ()),
+    "snunet": (((r"^(Up\d_\d)$", r"\1.up"),), (r"^Up",)),
+}
+# the reference's dead modules, which its checkpoints hold and the port
+# leaves out (zoo_specs' allow_unconsumed): ingestion drops their keys
+DEAD_KEYS = {
+    "dtcdscn": (r"^decoder[1-4]\.", r"^dblock\.", r"^finaldeconv1\.", r"^finalconv[23]\."),
+    "ifn": (r"^ca1\.", r"^bn_ca[12]\.", r"^o1_conv3\.", r"^o[234]_conv4\."),
+    "bit": (r"^resnet\.layer4\.", r"^resnet\.fc\."),
+    "afcf3d": (r"^decoder\.output\.superD[1-4]\.", r"^decoder\.output\.superout[1-4]\.",
+               r"^decoder\.AFCF_fuse\.AFCF1\.conv_down\.", r"^decoder\.output\.downT0\."),
+}
+
 _MODELS = {"smow_net": _smownet, "smow_net_lw": _smownet_lw,
            "change_mamba": functools.partial(_renamed_walk, renames=_CHANGE_MAMBA_RENAMES),
            "cd_mamba": _cd_mamba,
            "rs_mamba": functools.partial(_renamed_walk, renames=_RS_MAMBA_RENAMES)}
+_MODELS.update({name: functools.partial(_renamed_walk, renames=renames, transposed=transposed)
+                for name, (renames, transposed) in _ZOO.items()})
 
 
 def state_dict_from_jax(variables, model: str = "smow_net") -> Dict[str, torch.Tensor]:
-    """The port's state_dict of `model` ("smow_net", "smow_net_lw",
-    "change_mamba", "cd_mamba" or "rs_mamba") from the JAX variables; BN
-    running statistics come from `batch_stats`."""
+    """The port's state_dict of `model` (a name of `_MODELS`: "smow_net",
+    "smow_net_lw", the Mamba models and the ported zoo) from the JAX
+    variables; BN running statistics come from `batch_stats`."""
     w = _Writer(variables)
     _MODELS[model](w)
     return w.sd

@@ -11,11 +11,13 @@ model) and `cli.train --torch_ckpt` (warm-start).
 
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import torch
 
 from ..models import _LATER, list_models
+from .convert import DEAD_KEYS
 
 __all__ = ["strip_module_prefix", "load_torch_state_dict", "supported_models",
            "ingest_torch_checkpoint"]
@@ -51,7 +53,9 @@ def ingest_torch_checkpoint(model_name: str, path_or_sd, model: torch.nn.Module,
                             strict: bool = True) -> torch.nn.Module:
     """Load a reference-trained checkpoint (a path, or a name -> tensor dict)
     into the port's `model` of registry name `model_name`, in place, and
-    return it. strict=True requires every key of both sides to match."""
+    return it. The keys of the reference's dead modules, which the port
+    leaves out (convert.DEAD_KEYS), are dropped first; then strict=True
+    requires every key of both sides to match."""
     if model_name in _LATER:
         raise NotImplementedError(f"{model_name!r} is not ported yet: {_LATER[model_name]}")
     if model_name not in supported_models():
@@ -61,5 +65,7 @@ def ingest_torch_checkpoint(model_name: str, path_or_sd, model: torch.nn.Module,
         sd = load_torch_state_dict(path_or_sd)
     else:
         sd = strip_module_prefix({k: torch.as_tensor(v) for k, v in path_or_sd.items()})
+    dead = DEAD_KEYS.get(model_name, ())
+    sd = {k: v for k, v in sd.items() if not any(re.match(p, k) for p in dead)}
     model.load_state_dict(sd, strict=strict)
     return model

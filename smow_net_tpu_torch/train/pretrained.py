@@ -1,13 +1,16 @@
 """Pretrained-backbone ingestion for training (port of
 smow_net_tpu/train/pretrained.py).
 
-The reference starts SMOW_Net from an ImageNet torchvision resnet18
-(reference train.py:84-85), inflated into its 3D encoder, and SMOW_Net_LW
-from torch-hub mobilenet_v2 (models/SMOW_Net_LW.py:581-589). Nothing is
-downloaded here: `cli.train --pretrained <file>` reads a state_dict the
-user supplies (.pth or .npz) and copies it into the model's backbone in
-place, as the JAX package's `convert.load_resnet18_into_resnet3d` and
-`load_mobilenet_v2` do: convolution weights and BatchNorm scale, bias and
+The reference starts SMOW_Net and AFCF3D from an ImageNet torchvision
+resnet18 (reference train.py:84-85, compare/AFCF3D_NET.py:524-605),
+inflated into their 3D encoder, SMOW_Net_LW from torch-hub mobilenet_v2
+(models/SMOW_Net_LW.py:581-589), BIT from a torchvision resnet18 (its
+first three stages) and IFN's two VGG-16 bases from torchvision vgg16.
+Nothing is downloaded here: `cli.train --pretrained <file>` reads a
+state_dict the user supplies (.pth or .npz) and copies it into the model's
+backbone in place, as the JAX package's `convert.load_resnet18_into_resnet3d`,
+`load_mobilenet_v2`, `load_resnet18_2d` and `_load_vgg16_features` do:
+convolution weights (and VGG's biases) and BatchNorm scale, bias and
 running statistics; the temporal mixers and everything else keep their
 values.
 """
@@ -22,8 +25,8 @@ import torch
 __all__ = ["load_state_dict_file", "load_pretrained_backbone"]
 
 _BN = ("weight", "bias", "running_mean", "running_var")
-# the JAX package's recipes for zoo models (resnet18, mobilenet_v2, vgg16)
-_ZOO_RECIPES = ("afcf3d", "a2net", "tfi_gr", "seifnet", "bit", "ifn")
+# the JAX package's recipes for zoo models not ported yet (resnet18, mobilenet_v2)
+_ZOO_RECIPES = ("a2net", "tfi_gr", "seifnet")
 
 
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
@@ -58,6 +61,34 @@ def _resnet18_into_resnet3d(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tens
     return out
 
 
+def _resnet18_2d(sd: Dict[str, torch.Tensor], own, prefix: str) -> Dict[str, torch.Tensor]:
+    """torchvision resnet18 keys -> the port's `<prefix>.*` ResNet keys (the
+    same layout), for the stages the model builds (BIT builds three); a
+    downsample only where both sides have one."""
+    out = {f"{prefix}.conv1.weight": sd["conv1.weight"]}
+    out.update({f"{prefix}.bn1.{n}": sd[f"bn1.{n}"] for n in _BN})
+    for li in range(1, 5):
+        for bi in range(2):
+            t = f"layer{li}.{bi}"
+            if f"{prefix}.{t}.conv1.weight" not in own:
+                continue
+            for ci in (1, 2):
+                out[f"{prefix}.{t}.conv{ci}.weight"] = sd[f"{t}.conv{ci}.weight"]
+                out.update({f"{prefix}.{t}.bn{ci}.{n}": sd[f"{t}.bn{ci}.{n}"] for n in _BN})
+            if f"{prefix}.{t}.downsample.0.weight" in own and f"{t}.downsample.0.weight" in sd:
+                out[f"{prefix}.{t}.downsample.0.weight"] = sd[f"{t}.downsample.0.weight"]
+                out.update({f"{prefix}.{t}.downsample.1.{n}": sd[f"{t}.downsample.1.{n}"]
+                            for n in _BN})
+    return out
+
+
+def _vgg16_into_bases(sd: Dict[str, torch.Tensor], own) -> Dict[str, torch.Tensor]:
+    """torchvision vgg16 `features.N` convs -> IFN's `t1_base.features.N`
+    and `t2_base.features.N` (both bases start from the same weights)."""
+    return {key: sd[key.split(".", 1)[1]] for key in own
+            if key.startswith(("t1_base.features.", "t2_base.features."))}
+
+
 def _mobilenet_v2_into_backbone(sd: Dict[str, torch.Tensor], own) -> Dict[str, torch.Tensor]:
     """torch-hub mobilenet_v2 `features.*` -> the port's `backbone.features.*`
     (the same module layout): convolution weights and BatchNorm tensors."""
@@ -71,14 +102,18 @@ def load_pretrained_backbone(model_name: str, path: str, model: torch.nn.Module)
     sd = load_state_dict_file(path)
     own = model.state_dict()
     name = model_name.lower()
-    if name == "smow_net":
+    if name in ("smow_net", "afcf3d"):
         new = _resnet18_into_resnet3d(sd)
     elif name == "smow_net_lw":
         new = _mobilenet_v2_into_backbone(sd, own)
+    elif name == "bit":
+        new = _resnet18_2d(sd, own, "resnet")
+    elif name == "ifn":
+        new = _vgg16_into_bases(sd, own)
     elif name in _ZOO_RECIPES:
         raise NotImplementedError(
             f"no pretrained-backbone recipe for {model_name!r} in the port yet: the zoo's "
-            "recipes (load_resnet18_2d, vgg16) wait for ROADMAP.md queue 1 item 4")
+            "second row and its recipes wait for ROADMAP.md queue 1 item 4")
     else:
         raise ValueError(f"no pretrained-backbone recipe for model '{model_name}'; the "
                          "reference initializes this model from scratch or via its own URL")

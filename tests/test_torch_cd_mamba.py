@@ -347,4 +347,4 @@ def test_registry():
         with pytest.raises(RuntimeError, match="CUDA"):
             get_model("cd_mamba")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("bit", device="cpu")
+        get_model("seifnet", device="cpu")

@@ -307,4 +307,4 @@ def test_registry():
     with torch.device("meta"):
         assert sum(p.numel() for p in ChangeMamba().parameters()) == 48_561_794
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("bit", device="cpu")
+        get_model("seifnet", device="cpu")

@@ -1,6 +1,7 @@
 """The port's train and test CLIs (smow_net_tpu_torch/cli) end to end on the
 CPU: a synthetic set at 64x64, SMOW_Net, fp32, batch 2; two epochs, a
-resume to the third, then the test CLI on `best`.
+resume to the third, then the test CLI on `best`; and a zoo model (FC-EF)
+through both CLIs for one epoch.
 
 Checked: the files and lines the CLIs write, the state `--resume`
 restores (bitwise the one `last` holds), the visualisations (decoded by
@@ -146,6 +147,26 @@ def test_test_cli_scores_and_visualisations_match_jax(runs):
     assert next(names, None) is None
 
 
+@pytest.mark.parametrize("name", ["fc_ef"])
+def test_zoo_model_trains_and_tests_through_the_clis(runs, name):
+    """A zoo model of the registry through both CLIs: one epoch at 64x64,
+    then the test CLI on its `best`."""
+    out = str(runs["tmp"] / f"out_{name}")
+    first, log = _captured(cli_train.main, _train_opt(runs["root"], out, 1, "--model", name))
+    assert first.state.optimizer.count == 2
+    assert "Epoch [001/001], Step [0002/0002], Loss: " in log
+    records = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    assert [r["epoch"] for r in records] == [1] and np.isfinite(records[0]["train_loss"])
+    test_opt = cli_test.parse_option(["--model", name, "--data_dir", runs["root"],
+                                      "--checkpoint", os.path.join(out, "best"), "--output_dir",
+                                      str(runs["tmp"] / f"vis_{name}"), "--batchsize", "2",
+                                      "--device", "cpu"])
+    (scores, cm), test_log = _captured(cli_test.main, test_opt)
+    assert cm.sum() == 2 * 64 * 64 and "mean loss: " in test_log
+    assert 0.0 <= scores["iou"] <= 1.0
+    assert len(os.listdir(str(runs["tmp"] / f"vis_{name}"))) == 2
+
+
 def test_flags_and_devices_that_raise(runs):
     args = (runs["root"], str(runs["tmp"] / "never"), 1)
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
@@ -153,7 +174,7 @@ def test_flags_and_devices_that_raise(runs):
     with pytest.raises(SystemExit, match="--remat supports change_mamba/rs_mamba, not smow_net"):
         cli_train.setup(_train_opt(*args, "--remat"))
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        cli_train.setup(_train_opt(*args, "--model", "bit"))
+        cli_train.setup(_train_opt(*args, "--model", "seifnet"))
     with pytest.raises(SystemExit, match="--checkpoint / --torch_ckpt"):
         cli_test.main(cli_test.parse_option(["--device", "cpu"]))
     if not torch.cuda.is_available():

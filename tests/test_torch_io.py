@@ -154,13 +154,14 @@ def test_load_torch_state_dict_forms(tmp_path, setups):
 def test_ingest_refuses_unported_and_unknown_models():
     model = torch.nn.Linear(1, 1)
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        ingest.ingest_torch_checkpoint("fc_ef", {}, model)
+        ingest.ingest_torch_checkpoint("seifnet", {}, model)
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        ingest.ingest_torch_checkpoint("bit", {}, model)
+        ingest.ingest_torch_checkpoint("a2net", {}, model)
     with pytest.raises(ValueError):
         ingest.ingest_torch_checkpoint("no_such_model", {}, model)
     assert ingest.supported_models() == ("smow_net", "smow_net_lw", "change_mamba", "cd_mamba",
-                                         "rs_mamba")
+                                         "rs_mamba", "fc_ef", "snunet", "dtcdscn", "ifn", "bit",
+                                         "pa_former", "afcf3d")
 
 
 # ---------------------------------------------------------------- pretrained
@@ -256,4 +257,4 @@ def test_pretrained_refuses_models_without_a_recipe(tmp_path):
         with pytest.raises(ValueError, match="no pretrained-backbone recipe"):
             jax_pretrained.load_pretrained_backbone(name, path, {"params": {}, "batch_stats": {}})
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        pretrained.load_pretrained_backbone("bit", path, model)
+        pretrained.load_pretrained_backbone("a2net", path, model)

@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels (D, E, D-bwd, C, A-fwd, A-bwd, B
-in every padding mode and align_corners flag, the tile scatter of B, A-bwd,
+in every padding mode and align_corners flag, A-fwd and A-bwd also at C =
+64, the tile scatter of B, A-bwd,
 D, E and D-bwd on grids that take its sorted path and its direct one, F and
 F-bwd, the layer at D = 128 and 64; the selective scan's I-fwd, I-ckpt and
 I-bwd, over the grouped layout (I, K = 4 and 8) and the flat one (H),
@@ -660,6 +661,50 @@ def test_warp_kernels_on_a_nan_grid_match_plain(dev, C, mode):
         else:
             _close_nan(got, want, 1e-5, 1e-5)
             assert bool(torch.isnan(got).any())
+
+
+@pytest.mark.parametrize("mode", MODES, ids=["border_align", "border_half", "zeros_align",
+                                             "zeros_half"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_warp_kernels_at_c64_match_plain(dev, dtype, mode):
+    """A-fwd and A-bwd at C = 64 (PA-Former's width; built for A only) in
+    each mode against their plain versions, on a grid reaching past the
+    image with NaN coordinates (NaN at the same elements), counted as
+    `grid_sample_{fwd,bwd}_c64`; fp32 at the tolerances of the other
+    widths, bf16 to one rounding of the plain result on the same inputs."""
+    g = torch.Generator(dev).manual_seed(64)
+    x = torch.randn(2, 24, 64, 64, device=dev, generator=g).to(dtype)
+    gy = torch.randn(2, 24, 64, 64, device=dev, generator=g).to(dtype)
+    grid = _with_nans(torch.rand(2, 24, 64, 2, device=dev, generator=g) * 2.4 - 1.2)
+    before = {n: _kernels.launches[n] for n in ("grid_sample_fwd_c64", "grid_sample_bwd_c64")}
+    out = warp.grid_sample(x, grid, *mode)
+    dx, dw = warp.grid_sample_bwd(x, gy, grid, *mode)
+    torch.cuda.synchronize()
+    assert {n: _kernels.launches[n] - k for n, k in before.items()} == {
+        "grid_sample_fwd_c64": 1, "grid_sample_bwd_c64": 1}
+    rtol = 1e-5 if dtype == torch.float32 else BF16_REL
+    dx_p, dw_p = warp.grid_sample_bwd_plain(x.float(), gy.float(), grid, *mode)
+    _close_nan(out, warp.grid_sample_plain(x.float(), grid, *mode), 1e-5, rtol)
+    _close_nan(dx, dx_p, 1e-5, rtol)
+    _close_nan(dw, dw_p, 1e-5, 1e-4)
+    _close_nan(warp.corner_weights_vjp(grid, dw, 24, 64, *mode),
+               warp.corner_weights_vjp(grid, dw_p, 24, 64, *mode), 1e-5, 1e-4)
+
+
+def test_warp_wrappers_raise_at_unbuilt_widths(dev):
+    """C = 64 is built for A-fwd and A-bwd only; C = 40 for none."""
+    grid = torch.zeros(2, 8, 8, 2, device=dev)
+    for C in (40, 64):
+        x = torch.zeros(2, 8, 8, C, device=dev)
+        with pytest.raises(ValueError):
+            warp.grid_sample_transpose(x, grid, (8, 8))
+        with pytest.raises(ValueError):
+            warp.grid_sample_t_vjp(x, x, grid)
+    x = torch.zeros(2, 8, 8, 40, device=dev)
+    with pytest.raises(ValueError):
+        warp.grid_sample(x, grid)
+    with pytest.raises(ValueError):
+        warp.grid_sample_bwd(x, x, grid)
 
 
 @pytest.mark.parametrize("C", [8, 16])

@@ -239,4 +239,4 @@ def test_registry():
     assert not any(b.remat for b in blocks)
     assert all(m.remat for m in remat.modules() if hasattr(m, "remat"))
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        get_model("bit", device="cpu")
+        get_model("seifnet", device="cpu")

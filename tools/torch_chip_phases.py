@@ -5,9 +5,11 @@
     python tools/torch_chip_phases.py --tree PATH fwd bwd
     python tools/torch_chip_phases.py --tree PATH 4 4b layer
     python tools/torch_chip_phases.py --tree PATH adjcarry scatter
+    python tools/torch_chip_phases.py --tree PATH warp
     python tools/torch_chip_phases.py --tree PATH 4c 4d attn
     python tools/torch_chip_phases.py --tree PATH states route
     python tools/torch_chip_phases.py 27 28 29 30 31 32   # RS-Mamba and the layer family
+    python tools/torch_chip_phases.py 33 34 34b 34c 34d 35  # A at C = 64, PA-Former, the zoo
 
 Builds the kernels of the checkout it runs from (or of --tree), sets the
 fp32 comparisons' flags as chip_smoke.py does (TF32 off) and runs the named
@@ -17,7 +19,10 @@ phases: 3 (D), 3b (E, C, A-bwd), 3c (A-fwd, B), 3d (the unfused chain), 3e
 route, and its A/B), 4 and 4b (F and F-bwd, the decoder layer, at D = 128
 and 64), 4c and 4d (G and G-bwd, its attention sublayer, an op path), 27
 (kernel I at K = 8), 28-31 (RS-Mamba: the eval step, the fp32 model, the
-train step, the fp32 gradients) and 32 (SS2D's other forms, and remat). Each
+train step, the fp32 gradients), 32 (SS2D's other forms, and remat), 33
+(A-fwd and A-bwd at C = 64), 34-34d (PA-Former: the eval step, the fp32
+model, the train step, the fp32 gradients) and 35 (the zoo's first row's
+other six models). Each
 phase holds its kernels against their plain
 versions and logs their times, as in the whole script; a phase that
 returns the JSON line's numbers prints them.
@@ -59,6 +64,14 @@ the card from a seed: the wrapper from a CUDA graph of 20 calls
 (`graph_ms`; its zeroed accumulators and casts included) and the kernel
 alone (`kernel_only_ms`, the profiler).
 
+`warp` times kernels A-fwd (`warp.grid_sample`) and A-bwd
+(`warp.grid_sample_bwd`) at (32, 128, 128, C), C = 8, 16 and 32 (OFW's
+widths on the SMOW_Net path), border padding and align_corners, fp32 and
+bf16, on an i.i.d. flow of std 3 pixels made on the card from a seed: the
+wrapper from a CUDA graph of 20 calls (`graph_ms`) and the kernel alone
+(`kernel_only_ms`, the profiler). Run it per tree in turns (parent, change,
+change, parent) for an A/B of the warp kernels' bodies.
+
 `attn` times kernels G (`xattn.cross_attn_head1`) and G-bwd
 (`xattn._kernel_bwd`: the kernel, its allocations and the sum of its
 per-block records) at (16, 16384, D) bf16, D = 128 (phases 4c and 4d's
@@ -96,7 +109,8 @@ import sys
 import time
 
 PHASES = ["3", "3b", "3c", "3d", "3e", "3f", "3g", "4", "4b", "4c", "4d", "13", "14", "19",
-          "20", "27", "28", "29", "30", "31", "32", "fwd", "bwd", "layer", "adjcarry", "scatter",
+          "20", "27", "28", "29", "30", "31", "32", "33", "34", "34b", "34c", "34d", "35",
+          "fwd", "bwd", "layer", "adjcarry", "scatter", "warp",
           "attn", "states", "states_strips", "route"]
 # the sweeps each timing mode takes
 SWEEPS = {"fwd": ("I-fwd", "I-ckpt", "H-fwd", "H-ckpt", "carry"), "bwd": ("I-bwd", "H-bwd")}
@@ -276,6 +290,38 @@ def scatter_times(dev) -> dict:
         print(f"  {name} ({F_}, {H}, {W}, {C}) bf16: wrapper {t:.4f} ms (CUDA graph), kernel "
               f"{tk:.4f} ms (profiler)", flush=True)
         out[name], out[name + " kernel"] = t, tk
+    return out
+
+
+def warp_times(dev) -> dict:
+    """Kernels A-fwd and A-bwd at (32, 128, 128, C), C = 8, 16 and 32, fp32
+    and bf16: the wrapper from a CUDA graph and the kernel alone (see the
+    module's docstring)."""
+    import torch
+
+    from smow_net_tpu_torch.ops import warp
+
+    cs = own_chip_smoke()
+    gen = torch.Generator(dev).manual_seed(94)
+    out = {}
+    for C in (8, 16, 32):
+        F_, H, W = 32, 128, 128
+        x32 = torch.randn(F_, H, W, C, device=dev, generator=gen)
+        gy32 = torch.randn(F_, H, W, C, device=dev, generator=gen)
+        grid = warp.flow_grid(3.0 * torch.randn(F_, H, W, 2, device=dev, generator=gen), H, W)
+        for dt in (torch.float32, torch.bfloat16):
+            x, gy = x32.to(dt), gy32.to(dt)
+            for name, fn, kernel in (("A-fwd", lambda: warp.grid_sample(x, grid),
+                                      "grid_sample_fwd"),
+                                     ("A-bwd", lambda: warp.grid_sample_bwd(x, gy, grid),
+                                      "grid_sample_bwd")):
+                label = f"{name} C={C} {str(dt)[6:]}"
+                t = cs.graph_ms(fn)
+                tk = cs.kernel_only_ms(fn, kernel)
+                print(f"  {label}: wrapper {t:.4f} ms (CUDA graph), kernel {tk:.4f} ms "
+                      f"(profiler)", flush=True)
+                out[label], out[label + " kernel"] = t, tk
+        del x32, gy32, grid, x, gy
     return out
 
 
@@ -463,11 +509,19 @@ def main() -> None:
                                              plain=False),
               "31": lambda d: cs.phase_fp32_train_grads(d, "rs_mamba", 31),
               "32": cs.phase_layer_family,
+              "33": lambda d: cs.phase_warp_c64(d),
+              "34": lambda d: cs.phase_main_path(d, "pa_former", 34, rounds=2, per_round=3),
+              "34b": lambda d: cs.phase_fp32_model(d, "pa_former", "34b"),
+              "34c": lambda d: cs.phase_train(d, "pa_former", "34c", rounds=1, per_round=3),
+              "34d": lambda d: cs.phase_fp32_train_grads(d, "pa_former", "34d",
+                                                         reference=cs.plain_backward),
+              "35": lambda d: cs.phase_zoo(d),
               "4": lambda d: {D: cs.phase_kernel_f(d, D) for D in (128, 64)},
               "4b": lambda d: {D: cs.phase_kernel_f_bwd(d, D) for D in (128, 64)},
               "4c": lambda d: cs.phase_kernel_g(d)[0], "4d": lambda d: cs.phase_kernel_g_bwd(d)[0],
               "fwd": lambda d: sweep_times(d, "fwd"), "bwd": lambda d: sweep_times(d, "bwd"),
               "layer": layer_times, "adjcarry": adjcarry_times, "scatter": scatter_times,
+              "warp": warp_times,
               "attn": attn_times, "states": states_times, "states_strips": states_strips_times,
               "route": route_times}
     for name in args.phases:
